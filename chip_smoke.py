@@ -4,24 +4,44 @@
     python3 chip_smoke.py
 
 Phases (each failure makes the script exit non-zero without the result line):
-  1. build the CUDA kernels from pse_tpu_torch/csrc (nvcc, sm_90a) and print
-     the build seconds and the ptxas resource lines;
-  2. a small-input check: the port's step on the card (bf16 and f32 blocks)
-     against the same step on the CPU (the plain PyTorch versions) with the
-     same raw uniforms;
-  3. the main path: Simulation(N=100k, phi=0.45) with
-     PSEv1(T=1, seed=1, xi=0.5, error=1e-3) on engine="banded", a warm-up,
-     then 20 timed steps with every kernel's launch count set to 0 before
-     and read after (each must be > 0); prints particle-steps/s, ms/step,
-     the Lanczos m histogram and the overflow retries;
-  4. each kernel against its plain version at the main path's shapes, at
-     tilt 0 and 0.3: fill bitwise; build_mv and matvec <= 1e-5 (float32 A)
-     and <= 2e-3 (bfloat16 A) against the unrounded float32
-     matvec_banded_reference; contract <= 1e-5 (float32) and <= 5e-3
-     (bfloat16) against contract_col (max |diff| / max |plain|);
-  5. CUDA-event times of each kernel wrapper and its plain version, with
-     the least time the card could take (bytes at 3.35 TB/s, operations at
-     the peak rate of their type), printed as one JSON line;
+  [build]   build the CUDA kernels from pse_tpu_torch/csrc (nvcc, sm_90a) and
+            print the build seconds and the ptxas resource lines;
+  [small]   the force-free step on the card (bf16 and f32 blocks) against the
+            same step on the CPU (the plain PyTorch versions), same uniforms;
+  [forces-small]  the thermal step with forces, the athermal step and
+            mobility() on the card against the CPU (N=1080, L=24, tilts 0 and
+            0.3), same uniforms: <= 1e-4 (float32) and <= 5e-3 (bfloat16);
+  [oracle]  mobility() on the card at tests/data/oracle_gate.npz (bf16 blocks
+            and far-field factors) against the float64 direct-Ewald u_ref:
+            relative 2-norm <= 5e-3;
+  [main]    the brownian main path: Simulation(N=100k, phi=0.45) with
+            PSEv1(T=1, seed=1, xi=0.5, error=1e-3) on engine="banded", a
+            warm-up, then 20 timed steps with every kernel's launch count set
+            to 0 before and read after (each kernel of the path must be > 0);
+            particle-steps/s, ms/step, the Lanczos m histogram, the overflow
+            retries;
+  [main-forces]  the same with force_fn returning bench.py's fixed random
+            forces (default_rng(1).normal): the spread and the two-RHS build
+            join the path;
+  [main-mobility] Simulation.mobility_matvec once at the main path's state;
+  [main-blocks]   build_banded_blocks once per tilt (0, 0.3) at the main
+            path's state, the standalone build's entry point;
+  [profile] torch.profiler over 3 more steps of each main path: device time
+            by kernel and the device's idle share;
+  [kernels] each kernel against its plain version at the main path's shapes
+            (and the spread at the oracle's), at tilt 0 and 0.3: fill bitwise
+            (value rows too); build_mv and matvec <= 1e-5 (float32 A) and
+            <= 2e-3 (bfloat16 A) against the unrounded float32
+            matvec_banded_reference, two right-hand sides <= 1e-4 against two
+            one-RHS launches; build_banded_blocks bitwise build_mv's A and
+            <= 1e-6 (float32) / 2^-8 (bfloat16) of the float32 plain build;
+            contract <= 1e-5 (float32) and <= 5e-3 (bfloat16); spread
+            <= 1e-5 (float32) and <= 1e-4 (bfloat16) (max |diff| / max
+            |plain|);
+  [timing]  CUDA-event times of each kernel wrapper and its plain version,
+            with the least time the card could take (bytes at 3.35 TB/s,
+            operations at the peak rate of their type), and torch.bmm as the
+            spread's library yardstick, printed as one JSON line;
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -43,6 +63,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, per type
 N, PHI, XI, ERROR, SEED, DT = 100_000, 0.45, 0.5, 1e-3, 1, 1e-3
 WARM_STEPS, TIMED_STEPS = 5, 20
+ORACLE = os.path.join(HERE, "tests", "data", "oracle_gate.npz")
 
 
 def make_positions(n, phi, seed=0):
@@ -141,11 +162,11 @@ def phase_small(ph):
         cpu_d = dataclasses.replace(cpu, cheb=gpu.cheb)
         for tilt, rate in ((0.0, 0.0), (0.3, 0.5)):
             s_c, i_c = integrator.step(
-                cpu_d, integrator.make_state(pos, 3, tilt, "cpu"), 1.0, DT,
-                rate, None, uniforms=draws)
+                cpu_d, integrator.make_state(pos, 3, tilt, "cpu"), None, 1.0,
+                DT, rate, None, uniforms=draws)
             s_g, i_g = integrator.step(
-                gpu, integrator.make_state(pos, 3, tilt, "cuda"), 1.0, DT,
-                rate, None, uniforms=draws)
+                gpu, integrator.make_state(pos, 3, tilt, "cuda"), None, 1.0,
+                DT, rate, None, uniforms=draws)
             r, _ = rel_max(i_g["velocities"].cpu(), i_c["velocities"])
             ph.check(f"step {dtype} tilt={tilt} m={i_g['m_lanczos']}/"
                      f"{i_c['m_lanczos']}", r, bound)
@@ -153,23 +174,139 @@ def phase_small(ph):
                 ph.failed.append(f"small step {dtype} tilt={tilt} overflow")
 
 
-def phase_main(ph):
-    """The main path through the user entry points; returns the run data."""
+def phase_forces_small(ph):
+    """The with-forces step, the athermal step and mobility() on the card vs
+    on the CPU at N=1080, L=24, with the same uniforms."""
+    import dataclasses
+
+    import torch
+
+    from pse_tpu_torch import integrator, make_params
+
+    print("[forces-small] with-forces paths on the card vs the CPU plain path "
+          "(N=1080, L=24)")
+    rng = np.random.default_rng(12)
+    n, L = 1080, 24.0
+    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
+    forces = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    params = make_params(xi=XI, error=ERROR, L=L)
+    for thermal in (True, False):
+        cpu = integrator.make_config(params, n, engine="banded",
+                                     thermal=thermal, seed=3, device="cpu")
+        draws = _raw_uniforms(cpu, 5) if thermal else None
+        for dtype, bound in (("float32", 1e-4), ("bfloat16", 5e-3)):
+            gpu = integrator.make_config(
+                params, n, engine="banded", thermal=thermal, seed=3,
+                block_dtype=dtype, ff_weight_dtype=dtype, device="cuda")
+            cpu_d = dataclasses.replace(cpu, cheb=gpu.cheb)
+            for tilt, rate in ((0.0, 0.0), (0.3, 0.5)):
+                s_c, i_c = integrator.step(
+                    cpu_d, integrator.make_state(pos, 3, tilt, "cpu"),
+                    forces, 1.0, DT, rate, None, uniforms=draws)
+                s_g, i_g = integrator.step(
+                    gpu, integrator.make_state(pos, 3, tilt, "cuda"),
+                    forces.cuda(), 1.0, DT, rate, None, uniforms=draws)
+                r, _ = rel_max(i_g["velocities"].cpu(), i_c["velocities"])
+                kind = "thermal+forces" if thermal else "athermal"
+                ph.check(f"{kind} step {dtype} tilt={tilt} m={i_g['m_lanczos']}"
+                         f"/{i_c['m_lanczos']}", r, bound)
+                if i_g["m_lanczos"] != i_c["m_lanczos"]:
+                    ph.failed.append(f"{kind} {dtype} tilt={tilt}: m differs")
+                if int(s_g.nbr_overflow) or not torch.isfinite(s_g.pos).all():
+                    ph.failed.append(f"{kind} step {dtype} tilt={tilt} "
+                                     "overflow")
+                if thermal:
+                    continue
+                u_c, _ = integrator.mobility(cpu_d, pos, forces, tilt)
+                u_g, o_g = integrator.mobility(gpu, pos, forces.cuda(), tilt)
+                r, _ = rel_max(u_g.cpu(), u_c)
+                ph.check(f"mobility {dtype} tilt={tilt}", r, bound)
+                if int(o_g):
+                    ph.failed.append(f"mobility {dtype} tilt={tilt} overflow")
+
+
+def phase_oracle(ph):
+    """mobility() on the card (the defaults: bf16 blocks and factors)
+    against the float64 direct-Ewald oracle (the JAX bench gate's check)."""
+    from pse_tpu_torch import integrator, make_params
+
+    d = np.load(ORACLE)
+    n = int(d["n"])
+    params = make_params(xi=float(d["xi"]), error=ERROR, L=float(d["L"]))
+    cfg = integrator.make_config(params, n, thermal=False, engine="banded",
+                                 device="cuda")
+    print(f"[oracle] mobility() at oracle_gate.npz: N={n} L={float(d['L']):.4f}"
+          f" grid {params.Nx}^3, far-field columns "
+          f"{cfg.colff_spec.bins.n_cells[:2]} s={cfg.colff_spec.s} cap "
+          f"{cfg.colff_spec.bins.cap}, A {cfg.band_spec.block_dtype}, "
+          f"factors {cfg.colff_spec.weight_dtype}")
+    u, ovf = integrator.mobility(cfg, d["pos"], d["forces"])
+    u = u.double().cpu().numpy()
+    rel = float(np.linalg.norm(u - d["u_ref"]) / np.linalg.norm(d["u_ref"]))
+    ph.check("mobility vs f64 oracle (relative 2-norm)", rel, 5e-3)
+    if int(ovf) or not np.isfinite(u).all():
+        ph.failed.append("oracle mobility overflowed or is not finite")
+
+
+def _step_wrappers(forces: bool):
+    """The kernel wrappers a main-path step launches."""
+    from pse_tpu_torch.cellbins import fill_cells
+    from pse_tpu_torch.ops.banded_nearfield import build_mv_banded, matvec_banded
+    from pse_tpu_torch.ops.column_farfield import (contract_col_kernel,
+                                                   spread_moments_kernel)
+
+    w = {"fill_cells": fill_cells, "build_mv_banded": build_mv_banded,
+         "matvec_banded": matvec_banded, "contract_col": contract_col_kernel}
+    if forces:
+        w["spread_col"] = spread_moments_kernel
+    return w
+
+
+def _all_wrappers():
+    from pse_tpu_torch.ops.banded_nearfield import build_banded_blocks
+
+    return {**_step_wrappers(True), "build_banded_blocks": build_banded_blocks}
+
+
+def _counted(ph, label, expected, fn):
+    """Run fn() with every kernel's launch count set to 0 just before and
+    read just after; each kernel named in ``expected`` must have launched."""
+    import torch
+
+    wrappers = _all_wrappers()
+    torch.cuda.synchronize()
+    for w in wrappers.values():
+        w.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches = {k: w.launches for k, w in wrappers.items()}
+    print(f"  launches in the {label} run: {launches}")
+    for k in expected:
+        if launches[k] <= 0:
+            ph.failed.append(f"{k} never launched on the {label} path")
+    return out, launches
+
+
+def phase_main(ph, forces: bool):
+    """A main path through the user entry points; returns the run data."""
     import torch
 
     import pse_tpu_torch as pse
-    from pse_tpu_torch.cellbins import fill_cells
-    from pse_tpu_torch.ops.banded_nearfield import build_mv_banded, matvec_banded
-    from pse_tpu_torch.ops.column_farfield import contract_col_kernel
 
-    wrappers = {"fill_cells": fill_cells, "build_mv_banded": build_mv_banded,
-                "matvec_banded": matvec_banded,
-                "contract_col": contract_col_kernel}
     pos, L = make_positions(N, PHI, seed=0)
-    print(f"[main] Simulation N={N} phi={PHI} L={L:.4f} xi={XI} "
-          f"error={ERROR} engine=banded")
+    label = "main-forces" if forces else "main"
+    force_fn = None
+    if forces:
+        # bench.py's with-forces workload: one fixed random force array
+        F = torch.as_tensor(np.random.default_rng(1).normal(size=(N, 3))
+                            .astype(np.float32), device="cuda")
+
+        def force_fn(pos, t):
+            return F
+    print(f"[{label}] Simulation N={N} phi={PHI} L={L:.4f} xi={XI} "
+          f"error={ERROR} engine=banded force_fn={'fixed random' if forces else None}")
     sim = pse.Simulation(positions=pos, L=L, dt=DT, sync_every=10,
-                         device="cuda")
+                         force_fn=force_fn, device="cuda")
     sim.set_integrator(pse.PSEv1(T=1.0, seed=SEED, xi=XI, error=ERROR),
                        engine="banded", verbose=False)
     t0 = time.perf_counter()
@@ -177,16 +314,12 @@ def phase_main(ph):
     torch.cuda.synchronize()
     print(f"  warm-up {WARM_STEPS} steps: {time.perf_counter() - t0:.2f} s, "
           f"overflow retries {sim.metrics['overflow_retries']}")
-    for w in wrappers.values():
-        w.launches = 0
     retries0 = sim.metrics["overflow_retries"]
     hist0 = dict(sim.metrics["m_lanczos_hist"])
-    torch.cuda.synchronize()
     t0 = time.perf_counter()
-    sim.run(TIMED_STEPS)
-    torch.cuda.synchronize()
+    _, launches = _counted(ph, label, _step_wrappers(forces),
+                           lambda: sim.run(TIMED_STEPS))
     wall = time.perf_counter() - t0
-    launches = {k: w.launches for k, w in wrappers.items()}
     hist = {m: c - hist0.get(m, 0)
             for m, c in sim.metrics["m_lanczos_hist"].items()
             if c - hist0.get(m, 0)}
@@ -197,15 +330,11 @@ def phase_main(ph):
           f"includes overflow retries: {retries})")
     print(f"  m_lanczos histogram {dict(sorted(hist.items()))}; overflow "
           f"retries total {sim.metrics['overflow_retries']}")
-    print(f"  launches in the timed run: {launches}")
-    for k, v in launches.items():
-        if v <= 0:
-            ph.failed.append(f"{k} never launched on the main path")
     snap = sim.snapshot()
     if snap["pos"].shape != (N, 3) or not np.isfinite(snap["pos"]).all():
-        ph.failed.append("main path positions not finite (N, 3)")
+        ph.failed.append(f"{label} positions not finite (N, 3)")
     if int(sim.state.nbr_overflow):
-        ph.failed.append("main path ended with an overflow")
+        ph.failed.append(f"{label} ended with an overflow")
     bs = sim.config.band_spec
     print(f"  final config: band cap {bs.bins.cap} W {bs.window} R {bs.rows} "
           f"{bs.block_dtype}; far-field cap {sim.config.colff_spec.bins.cap} "
@@ -213,8 +342,53 @@ def phase_main(ph):
     return sim, launches, ms_step
 
 
-def phase_profile(sim, ms_step, steps=3):
-    """Where the main path's step time goes: torch.profiler over a few more
+def phase_mobility(ph, sim):
+    """Simulation.mobility_matvec at the main path's state: finite, and
+    the fixed forces' U = M F is the near field plus the far field."""
+    import torch
+
+    print("[main-mobility] Simulation.mobility_matvec at the main path's state")
+    F = sim.force_fn(sim.state.pos, sim.state.step)
+    u, launches = _counted(
+        ph, "main-mobility", ("fill_cells", "build_mv_banded", "contract_col",
+                              "spread_col"),
+        lambda: sim.mobility_matvec(F))
+    if u.shape != (N, 3) or not bool(torch.isfinite(u).all()):
+        ph.failed.append("mobility_matvec at the main path not finite (N, 3)")
+    # U.F = F.M.F > 0 for the SPD mobility
+    print(f"  |U| max {float(u.abs().max()):.4f}, F.U/N {float((u * F).sum()) / N:.6f}")
+    if not float((u * F).sum()) > 0:
+        ph.failed.append("mobility_matvec: F.M.F is not positive")
+    return launches
+
+
+def phase_blocks(ph, sim):
+    """The standalone build entry point at the main path's state."""
+    from pse_tpu_torch.box import make_box
+    from pse_tpu_torch.cellbins import bin_columns
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+
+    config, p = sim.config, sim.config.params
+    bs = config.band_spec
+    print("[main-blocks] build_banded_blocks at the main path's state")
+    inputs = []
+    for tilt in (0.0, 0.3):
+        box = make_box(p.L, tilt)
+        bins = bin_columns(sim.state.pos, box, bs.bins)
+        j0, nv, _, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+        inputs.append((bins, tilt, bs, config.cheb, p.L, p.ewald_cut,
+                       p.ewald_dr, j0, nv, zsh))
+    blocks, launches = _counted(
+        ph, "main-blocks", ("build_banded_blocks",),
+        lambda: [bdn.build_banded_blocks(*a) for a in inputs])
+    for A in blocks:
+        if not bool(A.float().isfinite().all()):
+            ph.failed.append("build_banded_blocks: A not finite")
+    return launches
+
+
+def phase_profile(sim, ms_step, label, steps=3):
+    """Where a main path's step time goes: torch.profiler over a few more
     steps (after the launch counts were read), device time by kernel, and
     the device's busy share of the unprofiled ms/step.  Reports only: a
     profiler that cannot trace the card here fails no phase."""
@@ -222,7 +396,7 @@ def phase_profile(sim, ms_step, steps=3):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    print(f"[profile] torch.profiler over {steps} main-path steps")
+    print(f"[profile] torch.profiler over {steps} {label} steps")
     try:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -262,7 +436,42 @@ def _band_operands(config, pos, tilt):
     g.manual_seed(7)
     f = vec_to_cells(bins, bs.bins,
                      torch.randn(pos.shape, generator=g, device="cuda"))
-    return bins, box, j0, nv, zsh, f
+    f2 = vec_to_cells(bins, bs.bins,
+                      torch.randn(pos.shape, generator=g, device="cuda"))
+    return bins, box, j0, nv, zsh, f, f2
+
+
+def _far_operands(config, pos, tilt, dtype, seed=11):
+    """Far-field bins with binned random forces, factors in ``dtype``."""
+    import torch
+
+    from pse_tpu_torch import cellbins as cb
+    from pse_tpu_torch.box import make_box
+    from pse_tpu_torch.ops import column_farfield as cff
+
+    p = config.params
+    spec = config.colff_spec._replace(weight_dtype=dtype)
+    box = make_box(p.L, tilt)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    bins, f = cb.bin_particles(
+        pos, box, spec.bins,
+        values=torch.randn(pos.shape, generator=g, device="cuda"))
+    return spec, bins, f, cff.build_col_factors(bins, box, spec, p)
+
+
+def _check_spread(ph, results, config, pos, tilt, where):
+    from pse_tpu_torch.ops import column_farfield as cff
+
+    p = config.params
+    for dtype, bound in (("float32", 1e-5), ("bfloat16", 1e-4)):
+        spec, _, f, fac = _far_operands(config, pos, tilt, dtype)
+        got = cff.spread_moments_kernel(f, spec, p, fac)
+        want = cff.spread_moments(f, spec, p, fac)
+        r, d = rel_max(got, want)
+        ph.check(f"spread {dtype} tilt={tilt} {where}", r, bound)
+        if dtype == config.colff_spec.weight_dtype and where == "main":
+            results["spread_col"]["err"].append(d)
 
 
 def phase_kernels(ph, sim, results):
@@ -270,6 +479,7 @@ def phase_kernels(ph, sim, results):
     import torch
 
     from pse_tpu_torch import cellbins as cb
+    from pse_tpu_torch import integrator, make_params
     from pse_tpu_torch.box import make_box
     from pse_tpu_torch.ops import banded_nearfield as bdn
     from pse_tpu_torch.ops import column_farfield as cff
@@ -278,34 +488,66 @@ def phase_kernels(ph, sim, results):
     p = config.params
     pos = sim.state.pos
     print("[kernels] against the plain versions at the main path's shapes")
+    vals = sim.force_fn(pos, 0).t().contiguous()
     for tilt in (0.0, 0.3):
         box = make_box(p.L, tilt)
         for name, spec, columns in (
                 ("near", config.band_spec.bins, True),
                 ("far", config.colff_spec.bins, False)):
             ops = cb.fill_operands(pos, box, spec, columns)
-            got = cb.fill_cells(*ops, spec.cap)
-            want = cb.fill_cells_reference(*ops, spec.cap)
+            v = vals[:, ops[1].long()]               # the sorted value rows
+            got = cb.fill_cells(*ops, spec.cap, v)
+            want = cb.fill_cells_reference(*ops, spec.cap, v)
             bad = sum(int((a != b).sum()) for a, b in zip(got, want))
-            ph.check(f"fill {name} tilt={tilt} (mismatched slots)", bad, 0)
+            ph.check(f"fill {name} tilt={tilt} (mismatched slots, value "
+                     "rows included)", bad, 0)
             results["fill_cells"]["err"].append(0.0 if bad == 0 else math.inf)
 
-        bins, box, j0, nv, zsh, f = _band_operands(config, pos, tilt)
+        bins, box, j0, nv, zsh, f, f2 = _band_operands(config, pos, tilt)
         for dtype, bound in (("float32", 1e-5), ("bfloat16", 2e-3)):
             bs = config.band_spec._replace(block_dtype=dtype)
             args = (bins, tilt, bs, config.cheb, p.L, p.ewald_cut, p.ewald_dr,
                     j0, nv, zsh)
             ref = bdn.matvec_banded_reference(*args[:9], f, p.self_mobility)
+            ref2 = bdn.matvec_banded_reference(*args[:9], f2, p.self_mobility)
             blocks, u_b = bdn.build_mv_banded(*args, f, p.self_mobility)
             u_m = bdn.matvec_banded(blocks, *args, f, p.self_mobility)
-            r_b, d_b = rel_max(u_b, ref)
+            u_m2 = bdn.matvec_banded(blocks, *args, f2, p.self_mobility)
+            _, u_b1 = bdn.build_mv_banded(*args, f2, p.self_mobility)
+            blocks2, u_b2 = bdn.build_mv_banded(
+                *args, torch.cat([f, f2]), p.self_mobility)
+            u_mm = bdn.matvec_banded(blocks, *args, torch.cat([f, f2]),
+                                     p.self_mobility)
+            A = bdn.build_banded_blocks(*args)
+            r_b, _ = rel_max(u_b, ref)
             r_m, d_m = rel_max(u_m, ref)
+            r_b2, d_b2 = rel_max(u_b2, torch.cat([ref, ref2]))
             ph.check(f"build_mv {dtype} tilt={tilt}", r_b, bound)
             ph.check(f"matvec {dtype} tilt={tilt}", r_m, bound)
+            ph.check(f"build_mv 2-RHS vs plain {dtype} tilt={tilt}", r_b2,
+                     bound)
+            for name, two, one in (("build_mv", u_b2, torch.cat([u_b, u_b1])),
+                                   ("matvec", u_mm, torch.cat([u_m, u_m2]))):
+                r, _ = rel_max(two, one)
+                ph.check(f"{name} 2-RHS vs two 1-RHS {dtype} tilt={tilt} "
+                         f"(bitwise {bool(torch.equal(two, one))})", r, 1e-4)
+            same = bool(torch.equal(A, blocks)) and bool(torch.equal(A, blocks2))
+            ph.check(f"build_banded_blocks A == build_mv A {dtype} "
+                     f"tilt={tilt} (mismatches)",
+                     0 if same else int((A != blocks).sum()), 0)
+            plain = bdn.build_banded_blocks_reference(
+                *args[:2], bs._replace(block_dtype="float32"), *args[3:])
+            a_bound = 1e-6 if dtype == "float32" else 2.0 ** -8
+            r_a = max(rel_max(A[:, :, k].float(), plain[:, :, k])[0]
+                      for k in range(2))
+            ph.check(f"build_banded_blocks vs plain build {dtype} "
+                     f"tilt={tilt}", r_a, a_bound)
             if dtype == config.band_spec.block_dtype:
-                results["build_mv_banded"]["err"].append(d_b)
+                results["build_mv_banded"]["err"].append(d_b2)
                 results["matvec_banded"]["err"].append(d_m)
-            del blocks
+                results["build_banded_blocks"]["err"].append(
+                    float((A.float() - plain.to(A.dtype).float()).abs().max()))
+            del blocks, blocks2, A, plain
 
         ff = cb.bin_particles(pos, box, config.colff_spec.bins)
         g = torch.Generator(device="cuda")
@@ -320,7 +562,16 @@ def phase_kernels(ph, sim, results):
             ph.check(f"contract {dtype} tilt={tilt}", r, bound)
             if dtype == config.colff_spec.weight_dtype:
                 results["contract_col"]["err"].append(d)
+        _check_spread(ph, results, config, pos, tilt, "main")
         torch.cuda.synchronize()
+
+    d = np.load(ORACLE)
+    params = make_params(xi=float(d["xi"]), error=ERROR, L=float(d["L"]))
+    ocfg = integrator.make_config(params, int(d["n"]), thermal=False,
+                                  engine="banded", device="cuda")
+    opos = torch.as_tensor(d["pos"], device="cuda")
+    for tilt in (0.0, 0.3):
+        _check_spread(ph, results, ocfg, opos, tilt, "oracle shapes")
 
 
 def phase_timing(sim, results):
@@ -343,16 +594,24 @@ def phase_timing(sim, results):
     a_item = torch.empty((), dtype=getattr(torch, bs.block_dtype)).element_size()
     print("[timing] CUDA events, wrapper calls at the main path's shapes")
 
-    ops = cb.fill_operands(pos, box, bs.bins, True)
-    # read: sorted xyz + pid (16 B/particle), starts + counts; write: 5
-    # (C, S) slot arrays of 4 B
-    nbytes = (16 * N + 8 * C) + 20 * C * S
-    results["fill_cells"].update(
-        ms=cuda_ms(lambda: cb.fill_cells(*ops, S), 50),
-        plain_ms=cuda_ms(lambda: cb.fill_cells_reference(*ops, S), 20),
-        bound_ms=1e3 * nbytes / HBM_BYTES_PER_S, bound_by="bytes")
+    def bound(name, nbytes, ops_n, dtype="float32"):
+        t_bytes = nbytes / HBM_BYTES_PER_S
+        t_ops = ops_n / PEAK_FLOPS[dtype]
+        results[name].update(
+            bound_ms=1e3 * max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations")
 
-    bins, box, j0, nv, zsh, f = _band_operands(config, pos, tilt)
+    ops = cb.fill_operands(pos, box, bs.bins, True)
+    vals = sim.force_fn(pos, 0).t()[:, ops[1].long()].contiguous()
+    # read: sorted xyz + pid + 3 value rows (28 B/particle), starts + counts;
+    # write: 5 (C, S) slot arrays + 3 value rows of 4 B
+    results["fill_cells"].update(
+        ms=cuda_ms(lambda: cb.fill_cells(*ops, S, vals), 50),
+        plain_ms=cuda_ms(lambda: cb.fill_cells_reference(*ops, S, vals), 20))
+    bound("fill_cells", (28 * N + 8 * C) + 32 * C * S, 0)
+
+    bins, box, j0, nv, zsh, f, f2 = _band_operands(config, pos, tilt)
+    f12 = torch.cat([f, f2])
     args = (bins, tilt, bs, config.cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
             zsh)
     blocks, _ = bdn.build_mv_banded(*args, f, p.self_mobility)
@@ -360,28 +619,38 @@ def phase_timing(sim, results):
     pairs = int((blocks[:, :, 0] != 0).sum())
     plain = cuda_ms(lambda: bdn.matvec_banded_reference(
         *args[:9], f, p.self_mobility), 3)
-    # besides A: slot coordinates + mask and f read, j0 + zsh tables read,
-    # u written (4 B each)
-    small = 4 * C * S * 4 + 3 * C * S * 4 + 2 * 5 * C * T * 4 + 3 * C * S * 4
+    # besides A: slot coordinates + mask read, j0 + zsh tables read, and per
+    # right-hand side f read and u written (4 B each)
+    geo = 4 * C * S * 4 + 2 * 5 * C * T * 4
+    rhs = 2 * 3 * C * S * 4
     # operations on this run's valid pairs (nonzero A): ~40 flops forward +
-    # transposed; the build adds the geometry and two degree-`deg` Clenshaw
-    # recurrences
+    # transposed per right-hand side; the build adds the geometry and two
+    # degree-`deg` Clenshaw recurrences
     deg = config.cheb.degree
-    ops_mv = 40 * pairs
-    ops_build = (40 + 20 + 8 * deg) * pairs
-    for name, fn, ops_n in (
-            ("build_mv_banded",
-             lambda: bdn.build_mv_banded(*args, f, p.self_mobility), ops_build),
-            ("matvec_banded",
-             lambda: bdn.matvec_banded(blocks, *args, f, p.self_mobility),
-             ops_mv)):
-        t_bytes = (a_bytes + small) / HBM_BYTES_PER_S
-        t_ops = ops_n / PEAK_FLOPS["float32"]
-        results[name].update(
-            ms=cuda_ms(fn, 20), plain_ms=plain,
-            bound_ms=1e3 * max(t_bytes, t_ops),
-            bound_by="bytes" if t_bytes >= t_ops else "operations")
-    print(f"  A: {a_bytes / 1e6:.1f} MB, valid pairs {pairs}")
+    ops_build = (20 + 8 * deg) * pairs
+    results["build_mv_banded"].update(
+        ms=cuda_ms(lambda: bdn.build_mv_banded(*args, f12, p.self_mobility),
+                   20),
+        plain_ms=cuda_ms(lambda: bdn._reference_per_rhs(
+            f12, lambda fk: bdn.matvec_banded_reference(
+                *args[:9], fk, p.self_mobility)), 3))
+    bound("build_mv_banded", a_bytes + geo + 2 * rhs, ops_build + 80 * pairs)
+    ms1 = cuda_ms(lambda: bdn.build_mv_banded(*args, f, p.self_mobility), 20)
+    results["matvec_banded"].update(
+        ms=cuda_ms(lambda: bdn.matvec_banded(blocks, *args, f,
+                                             p.self_mobility), 20),
+        plain_ms=plain)
+    bound("matvec_banded", a_bytes + geo + rhs, 40 * pairs)
+    ms_mm = cuda_ms(lambda: bdn.matvec_banded(blocks, *args, f12,
+                                              p.self_mobility), 20)
+    results["build_banded_blocks"].update(
+        ms=cuda_ms(lambda: bdn.build_banded_blocks(*args), 20),
+        plain_ms=cuda_ms(lambda: bdn.build_banded_blocks_reference(*args), 3))
+    bound("build_banded_blocks", a_bytes + geo, ops_build)
+    print(f"  A: {a_bytes / 1e6:.1f} MB, valid pairs {pairs}; build_mv one "
+          f"RHS {ms1:.4f} ms, two {results['build_mv_banded']['ms']:.4f} ms; "
+          f"matvec one RHS {results['matvec_banded']['ms']:.4f} ms, two "
+          f"{ms_mm:.4f} ms")
     del blocks
 
     ff = cb.bin_particles(pos, box, cs.bins)
@@ -392,16 +661,32 @@ def phase_timing(sim, results):
     Cf, cap = cs.bins.n_cells_total, cs.bins.cap
     nn = 9 * cs.s[0] * cs.s[1]
     w_item = fac.wxy.element_size()
-    nbytes = (grid.numel() * 4 + (fac.wxy.numel() + fac.wz.numel()) * w_item
-              + 3 * Cf * cap * 4)
-    flops = 2 * Cf * nn * 3 * p.Nz * cap + 2 * 3 * p.Nz * Cf * cap
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[cs.weight_dtype]
+    w_bytes = (fac.wxy.numel() + fac.wz.numel()) * w_item
+    flops = 2 * Cf * nn * 3 * p.Nz * cap
     results["contract_col"].update(
         ms=cuda_ms(lambda: cff.contract_col_kernel(grid, cs, p, fac), 20),
-        plain_ms=cuda_ms(lambda: cff.contract_col(grid, cs, p, fac), 5),
-        bound_ms=1e3 * max(t_bytes, t_ops),
-        bound_by="bytes" if t_bytes >= t_ops else "operations")
+        plain_ms=cuda_ms(lambda: cff.contract_col(grid, cs, p, fac), 5))
+    bound("contract_col", grid.numel() * 4 + w_bytes + 3 * Cf * cap * 4,
+          flops + 2 * 3 * p.Nz * Cf * cap, cs.weight_dtype)
+
+    spec, _, fs, sfac = _far_operands(config, pos, tilt, cs.weight_dtype)
+    out_bytes = Cf * nn * 3 * p.Nz * 4
+    results["spread_col"].update(
+        ms=cuda_ms(lambda: cff.spread_moments_kernel(fs, spec, p, sfac), 20),
+        plain_ms=cuda_ms(lambda: cff.spread_moments(fs, spec, p, sfac), 5))
+    bound("spread_col", fs.numel() * 4 + w_bytes + out_bytes, flops,
+          cs.weight_dtype)
+    # the library yardstick: one batched product of wxy with a pre-built X
+    fp = fs * float(np.float32(p.spread_prefac))
+    X = (fp.permute(1, 0, 2)[:, :, None, :] * sfac.wz.float()[:, None]
+         ).reshape(Cf, 3 * p.Nz, cap).to(sfac.wxy.dtype)
+    Xt = X.transpose(1, 2)
+    results["spread_col"]["library_ms"] = cuda_ms(
+        lambda: torch.bmm(sfac.wxy, Xt), 20)
+    fold_ms = cuda_ms(lambda: cff.spread_col_kernel(fs, spec, p, sfac), 20)
+    print(f"  spread: moments kernel {results['spread_col']['ms']:.4f} ms, "
+          f"with the torch overlap-add {fold_ms:.4f} ms, torch.bmm "
+          f"({sfac.wxy.dtype} in and out) {results['spread_col']['library_ms']:.4f} ms")
 
 
 def device_line():
@@ -424,6 +709,10 @@ KERNELS = (
      "pse_tpu/ops/banded_nearfield.py:1147"),
     ("contract_col", "pse_tpu_torch/csrc/contract.cu",
      "pse_tpu/ops/column_farfield.py:307"),
+    ("spread_col", "pse_tpu_torch/csrc/spread.cu",
+     "pse_tpu/ops/column_farfield.py:417"),
+    ("build_banded_blocks", "pse_tpu_torch/csrc/banded.cu",
+     "pse_tpu/ops/banded_nearfield.py:733"),
 )
 
 
@@ -451,11 +740,20 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build()
     phase_small(ph)
-    sim, launches, ms_step = phase_main(ph)
-    phase_profile(sim, ms_step)
-    results = {name: {"err": []} for name, _, _ in KERNELS}
-    phase_kernels(ph, sim, results)
-    phase_timing(sim, results)
+    phase_forces_small(ph)
+    phase_oracle(ph)
+    sim, _, ms_b = phase_main(ph, forces=False)
+    phase_profile(sim, ms_b, "brownian main-path")
+    del sim
+    simf, launches, ms_f = phase_main(ph, forces=True)
+    phase_profile(simf, ms_f, "with-forces main-path")
+    phase_mobility(ph, simf)
+    launches["build_banded_blocks"] = phase_blocks(
+        ph, simf)["build_banded_blocks"]
+    results = {name: {"err": [], "library_ms": None}
+               for name, _, _ in KERNELS}
+    phase_kernels(ph, simf, results)
+    phase_timing(simf, results)
 
     line = []
     for name, src, replaces in KERNELS:
@@ -466,13 +764,13 @@ def main() -> int:
             "max_abs_err": max(r["err"]) if r["err"] else None,
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": None,
+            "library_ms": r["library_ms"],
         })
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
-              f"launches {launches[name]} in {TIMED_STEPS} steps")
-    print(f"total {time.perf_counter() - t_start:.1f} s; main path "
-          f"{ms_step:.3f} ms/step")
+              f"launches {launches[name]}")
+    print(f"total {time.perf_counter() - t_start:.1f} s; main paths "
+          f"{ms_b:.3f} ms/step (brownian), {ms_f:.3f} ms/step (with forces)")
     if ph.failed:
         print("FAILED: " + "; ".join(map(str, ph.failed)))
         return 1

@@ -1,10 +1,13 @@
 """pse_tpu_torch: the PyTorch/CUDA port of pse_tpu (Positively Split Ewald
 Brownian dynamics) for one NVIDIA H100.
 
-It runs the thermal, force-free step of the banded engine (z-sorted column
-near field + z-column far field) with hand-written CUDA kernels
-(``csrc/``, built by ``nvcc`` for sm_90a at first use), and a plain PyTorch
-version of every kernel that the wrappers run on CPU tensors.  Entry points
+It runs the step of the banded engine (z-sorted column near field +
+z-column far field), thermal or athermal, with or without external forces
+(``Simulation(force_fn=...)``), and the deterministic U = M F
+(``integrator.mobility``, ``Simulation.mobility_matvec``), with hand-written
+CUDA kernels (``csrc/``, built by ``nvcc`` for sm_90a at first use) and a
+plain PyTorch version of every kernel that the wrappers run on CPU
+tensors.  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.  This package
 imports ``torch``, numpy and scipy; it never imports ``jax`` or ``pse_tpu``.
 """

@@ -11,9 +11,12 @@ PyTorch counterpart of ``pse_tpu/api.py``:
 
 ``run`` steps on the device from a host loop; at chunk boundaries it reads
 the sticky overflow mask and, if a capacity overflowed, rewinds the chunk,
-grows the named capacities and runs it again.  The port covers the thermal,
-force-free banded engine: ``force_fn``, athermal runs and the other engines
-raise ``NotImplementedError`` (see integrator.make_config).
+grows the named capacities and runs it again.  ``force_fn(pos, step)``
+returns the (N, 3) forces at the current positions as a tensor on the
+simulation's device (it is called every step, with no host sync);
+``mobility_matvec`` is the deterministic U = M F.  The port covers the
+banded engine: the other engines and ``PSEv1.group`` raise
+``NotImplementedError`` (see integrator.make_config).
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import torch
 from . import shear as shear_function
 from .box import Box, make_box
 from .integrator import (
-    State, StepConfig, grow_config, make_config, make_state,
+    State, StepConfig, grow_config, make_config, make_state, mobility,
     state_from_arrays, step as _step,
 )
 from .params import make_params
@@ -153,12 +156,15 @@ class Simulation:
         if self.method is None:
             raise RuntimeError("set_integrator first")
         if T is not None:
-            if not callable(T) and float(T) == 0.0:
-                raise NotImplementedError(
-                    "an athermal step is the with-forces path (M·0), not "
-                    "ported to pse_tpu_torch yet (ROADMAP.md, Queue A)"
-                )
             self.method = dataclasses.replace(self.method, T=T)
+            thermal = callable(T) or float(T) != 0.0
+            if thermal != self.config.thermal:
+                # going athermal on a zero-force Simulation keeps the (M·0)
+                # deterministic path, as make_config would have built it
+                changes = {"thermal": thermal}
+                if not thermal and not self.config.has_forces:
+                    changes["has_forces"] = True
+                self.config = dataclasses.replace(self.config, **changes)
         if function_form is not None:
             if float(max_strain) > self._built_max_strain:
                 raise ValueError(
@@ -192,8 +198,11 @@ class Simulation:
         method = self.method
         new_tilt = (float(self.shear_variant.value(t + 1))
                     if self.shear_variant is not None else None)
-        return _step(self.config, state, float(method.temperature(t)),
-                     self.dt, float(method.shear_rate(t)), new_tilt)
+        forces = (self.force_fn(state.pos, t) if self.force_fn is not None
+                  else None)
+        return _step(self.config, state, forces,
+                     float(method.temperature(t)), self.dt,
+                     float(method.shear_rate(t)), new_tilt)
 
     # -- host loop --------------------------------------------------------
 
@@ -258,11 +267,13 @@ class Simulation:
         return make_box(self.L, self.state.tilt_xy)
 
     def mobility_matvec(self, forces):
-        """Deterministic U = M F: not ported yet (the with-forces slice)."""
-        from .integrator import mobility
-
-        return mobility(self.config, self.state.pos, forces,
-                        self.state.tilt_xy)
+        """Deterministic U = M F (N, 3) at the current configuration."""
+        u, overflow = mobility(self.config, self.state.pos, forces,
+                               self.state.tilt_xy)
+        if int(overflow):
+            raise RuntimeError("capacity overflow in mobility; enlarge the "
+                               "spec (integrator.grow_config)")
+        return u
 
     def snapshot(self) -> dict:
         """Checkpoint payload, the same keys as pse_tpu's snapshot()."""

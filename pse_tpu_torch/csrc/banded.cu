@@ -1,14 +1,24 @@
-// Banded near-field mobility: the fused pair-coefficient build + first
-// matvec, and the matvec that streams the stored coefficients back.
+// Banded near-field mobility: the pair-coefficient build (alone, or fused
+// with the first matvec) and the matvec that streams the stored coefficients
+// back, for one or two right-hand sides.
 //
-// Replaces two Pallas kernels of pse_tpu/ops/banded_nearfield.py:
+// Replaces three Pallas kernels of pse_tpu/ops/banded_nearfield.py:
 //   * `_build_mv_kernel` (:1472, launched by `build_mv_banded`, :1693): build
 //     A = (imrr, bco/d^2) over the half stencil and apply it at once;
 //   * `_matvec_kernel` (:1147, launched by `matvec_banded`, :1392): u = M_real f
-//     from one read of A, forward and transposed.
-// Both compute what `matvec_banded_reference` computes (that module's plain
-// version), with A rounded to the block dtype before it is applied, in the
-// build and in every later matvec alike, so Lanczos sees one operator.
+//     from one read of A, forward and transposed;
+//   * `_build_kernel` (:733, launched by `build_banded_blocks`, :894): the
+//     build alone (MODE_BUILD here, no right-hand side; the TPU kernel's
+//     second output, the prefolded coordinates pos_cyc, feeds only its MXU
+//     matvec and has no counterpart).
+// The matvecs compute what `matvec_banded_reference` computes (that module's
+// plain version), with A rounded to the block dtype before it is applied, in
+// the build and in every later matvec alike, so Lanczos sees one operator.
+// The build writes the same A in every mode (its plain version is
+// `build_banded_blocks_reference`).  With NRHS = 2 (f (6, C, S), the forces
+// and the first Lanczos vector of a with-forces step) each A element is
+// built or read once and applied to both; each right-hand side is summed in
+// the order of a one-RHS launch.
 //
 // Semantics (one block per (column c, stored offset h), h in 0..4):
 //   * the neighbour column is c + (OX[h], OY[h]) on the periodic column grid;
@@ -23,7 +33,7 @@
 //     the self pair (excluded at offset 0 only); the Chebyshev branch select
 //     is at r = 2a;
 //   * the forward product u_i += F1 f_j + Bq d (d . f_j) goes to plane h of
-//     uo (C, 9, 3, S); for h >= 1 the transposed product u_j += F1 f_i +
+//     uo (C, 9, 3 NRHS, S); for h >= 1 the transposed product u_j += F1 f_i +
 //     Bq d (d . f_i) is summed by cyclic rank in shared memory over all tiles,
 //     folded to slots, and written to plane 4 + h at the OWN column; torch
 //     sums the forward planes and rolls the transposed ones onto their target
@@ -31,13 +41,14 @@
 //
 // What bounds it on the H100: at bench scale (C = 216, S = 576, W = 128,
 // bf16) the matvec must read A, 318.5 MB, >= ~95 us at 3.35 TB/s; the build
-// writes the same bytes.  The pair arithmetic (~80 M pairs, ~40 flops each
+// writes the same bytes (the build alone moves nothing else of size).  The pair arithmetic (~80 M pairs, ~40 flops each
 // forward + transposed, plus a degree-8 Clenshaw pair in the build) is of
 // the same order on the CUDA cores.
 //
 // Design: 256 threads (8 warps) per block; lane w of a warp walks window
 // lanes w, w+32, ... (coalesced A and window reads) and the warp's rows are
-// warp, warp+8, ... (R/8 per warp, held in registers).  Forward sums are
+// warp, warp+8, ... (R/8 per warp, held in registers with their NRHS right-
+// hand sides and sums: MAX_RPW x 3 x NRHS of each).  Forward sums are
 // reduced across lanes with warp shuffles in a fixed order; transposed sums
 // go through a per-warp shared-memory partial and a fixed-order sum into the
 // rank accumulator.  No float atomics: every output element is written by
@@ -54,13 +65,17 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_RPW = 4;  // rows per warp: R <= 32
 
+// MODE_MATVEC reads A, MODE_BUILD_MV builds A and applies it, MODE_BUILD
+// only builds it (NRHS = 0, no f, no uo)
+constexpr int MODE_MATVEC = 0, MODE_BUILD_MV = 1, MODE_BUILD = 2;
+
 // (0,0) then the positive half stencil (banded_nearfield.full_xy_offsets)
 __constant__ int OX[N_HALF] = {0, 0, 1, 1, 1};
 __constant__ int OY[N_HALF] = {0, 1, -1, 0, 1};
 
 struct Band {
   const float *px, *py, *pz, *mask;  // (C, S) slot coordinates / occupancy
-  const float* f;                    // (3, C, S) right-hand side, pads zero
+  const float* f;                    // (3 NRHS, C, S) right-hand sides, pads 0
   const int* j0;                     // (5, C, T) window start ranks
   const float* zsh;                  // (5, C, T) window z image shifts
   const int* n_valid;                // (C,) occupied slots per column
@@ -70,24 +85,32 @@ struct Band {
   int ncx, ncy, S, R, W, T;
   float Lx, Ly, Lz, tilt;
   void* A;    // (C, 2, S, 5W) block dtype: (imrr, bco/d^2)
-  float* uo;  // (C, 9, 3, S)
+  float* uo;  // (C, 9, 3 NRHS, S)
 };
 
+// The Clenshaw recurrence of chebyshev.eval_pair_functions, rounded step by
+// step as it is there (no fused multiply-add), so that the build's float32
+// coefficients are the plain build's.  On the H100 that costs ~4 % of a
+// build_mv (pse_tpu_torch/ab_build_mv.py times it against contracted FMAs).
 __device__ __forceinline__ float clenshaw(const float* c_lo, const float* c_hi,
                                           bool in_lo, float t, int n) {
   const float t2 = 2.f * t;
   float b1 = 0.f, b2 = 0.f;
   for (int k = n - 1; k > 0; --k) {
     const float ck = in_lo ? c_lo[k] : c_hi[k];
-    const float nb = ck + t2 * b1 - b2;
+    const float nb = __fsub_rn(__fadd_rn(ck, __fmul_rn(t2, b1)), b2);
     b2 = b1;
     b1 = nb;
   }
-  return (in_lo ? c_lo[0] : c_hi[0]) + t * b1 - b2;
+  return __fsub_rn(__fadd_rn(in_lo ? c_lo[0] : c_hi[0], __fmul_rn(t, b1)),
+                   b2);
 }
 
-template <bool BUILD, typename AT>
+template <int MODE, int NRHS, typename AT>
 __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
+  constexpr bool BUILD = MODE != MODE_MATVEC;
+  constexpr int NR = NRHS > 0 ? NRHS : 1;  // register array extent
+  constexpr int NF = 3 * NRHS;             // right-hand-side rows
   extern __shared__ float smem[];
   const int S = b.S, W = b.W, R = b.R, T = b.T;
   const int C = b.ncx * b.ncy;
@@ -103,13 +126,16 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
   const int nv = b.n_valid[nbr];
   const float wx = (cx + ox >= b.ncx) ? 1.f : ((cx + ox < 0) ? -1.f : 0.f);
   const float wy = (cy + oy >= b.ncy) ? 1.f : ((cy + oy < 0) ? -1.f : 0.f);
+  // explicit roundings (no fused multiply-add) in the geometry the build
+  // tests against the cutoff, so that the plain build reproduces it
   const float sy = wy * b.Ly;
-  const float sx = wx * b.Lx + b.tilt * sy;
+  const float sx = __fadd_rn(wx * b.Lx, __fmul_rn(b.tilt, sy));
+  const bool transposed = NRHS > 0 && h > 0;
 
-  float* own = smem;                      // 7 x S: x, y, z, m, f0, f1, f2
-  float* acc = own + 7 * S;               // 3 x (S + W): transposed, by rank
-  float* part = acc + 3 * (S + W);        // WARPS x 3 x W: per-warp partials
-  float* cf = part + WARPS * 3 * W;       // Chebyshev operand (build)
+  float* own = smem;                      // (4 + NF) x S: x, y, z, m, f rows
+  float* acc = own + (4 + NF) * S;        // NF x (S + W): transposed, by rank
+  float* part = acc + NF * (S + W);       // WARPS x NF x W: per-warp partials
+  float* cf = part + WARPS * NF * W;      // Chebyshev operand (build)
   const int SW = S + W;
 
   for (int s = tid; s < S; s += THREADS) {
@@ -118,11 +144,10 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
     own[S + s] = b.py[o];
     own[2 * S + s] = b.pz[o];
     own[3 * S + s] = b.mask[o];
-    own[4 * S + s] = b.f[o];
-    own[5 * S + s] = b.f[CS + o];
-    own[6 * S + s] = b.f[2 * CS + o];
+#pragma unroll
+    for (int k = 0; k < NF; ++k) own[(4 + k) * S + s] = b.f[k * CS + o];
   }
-  for (int s = tid; s < 3 * SW; s += THREADS) acc[s] = 0.f;
+  for (int s = tid; s < NF * SW; s += THREADS) acc[s] = 0.f;
   if (BUILD)
     for (int s = tid; s < 4 + 4 * b.n_coef; s += THREADS) cf[s] = b.cheb[s];
   __syncthreads();
@@ -132,7 +157,7 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
   const long long a_im = (long long)c * 2 * S * a_row;  // A[c, 0]
   const long long a_bq = a_im + (long long)S * a_row;   // A[c, 1]
   const int nc = b.n_coef;
-  float* wpart = part + warp * 3 * W;
+  float* wpart = part + warp * NF * W;
 
   for (int t = 0; t < T; ++t) {
     const long long wt = ((long long)h * C + c) * T + t;
@@ -140,8 +165,7 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
     const float zs = b.zsh[wt];
 
     float xi[MAX_RPW], yi[MAX_RPW], zi[MAX_RPW], mi[MAX_RPW];
-    float fi0[MAX_RPW], fi1[MAX_RPW], fi2[MAX_RPW];
-    float u0[MAX_RPW], u1[MAX_RPW], u2[MAX_RPW];
+    float fi[NR][3][MAX_RPW], u[NR][3][MAX_RPW];
 #pragma unroll
     for (int q = 0; q < MAX_RPW; ++q) {
       const int i = q < rpw ? t * R + warp + WARPS * q : 0;
@@ -149,10 +173,13 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
       yi[q] = own[S + i];
       zi[q] = own[2 * S + i];
       mi[q] = own[3 * S + i];
-      fi0[q] = own[4 * S + i];
-      fi1[q] = own[5 * S + i];
-      fi2[q] = own[6 * S + i];
-      u0[q] = u1[q] = u2[q] = 0.f;
+#pragma unroll
+      for (int r = 0; r < NRHS; ++r)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          fi[r][k][q] = own[(4 + 3 * r + k) * S + i];
+          u[r][k][q] = 0.f;
+        }
     }
 
     for (int w = lane; w < W; w += 32) {
@@ -164,8 +191,14 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
       const float yw = b.py[o] + sy;
       const float zw = (b.pz[o] + (wrap ? b.Lz : 0.f)) - zs;
       const float mw = (w < nv) ? b.mask[o] : 0.f;
-      const float fw0 = b.f[o], fw1 = b.f[CS + o], fw2 = b.f[2 * CS + o];
-      float t0 = 0.f, t1 = 0.f, t2 = 0.f;
+      float fw[NR][3], tp[NR][3];
+#pragma unroll
+      for (int r = 0; r < NRHS; ++r)
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          fw[r][k] = b.f[(3 * r + k) * CS + o];
+          tp[r][k] = 0.f;
+        }
 #pragma unroll
       for (int q = 0; q < MAX_RPW; ++q) {
         if (q >= rpw) break;
@@ -174,7 +207,9 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
         const long long ai = (long long)i * a_row + (long long)h * W + w;
         float F1, Bq;
         if (BUILD) {
-          const float d2 = dx * dx + dy * dy + dz * dz;
+          const float d2 = __fadd_rn(
+              __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+              __fmul_rn(dz, dz));
           const bool valid = (mi[q] * mw > 0.f) && (d2 < b.cut2) &&
                              (d2 >= b.dr2) && !(h == 0 && j == i);
           const float d2s = valid ? d2 : 1.f;
@@ -195,21 +230,26 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
           F1 = to_f32(A[a_im + ai]);
           Bq = to_f32(A[a_bq + ai]);
         }
-        const float g = Bq * (dx * fw0 + dy * fw1 + dz * fw2);
-        u0[q] += F1 * fw0 + g * dx;
-        u1[q] += F1 * fw1 + g * dy;
-        u2[q] += F1 * fw2 + g * dz;
-        if (h > 0) {
-          const float gi = Bq * (dx * fi0[q] + dy * fi1[q] + dz * fi2[q]);
-          t0 += F1 * fi0[q] + gi * dx;
-          t1 += F1 * fi1[q] + gi * dy;
-          t2 += F1 * fi2[q] + gi * dz;
+#pragma unroll
+        for (int r = 0; r < NRHS; ++r) {
+          const float g = Bq * (dx * fw[r][0] + dy * fw[r][1] + dz * fw[r][2]);
+          u[r][0][q] += F1 * fw[r][0] + g * dx;
+          u[r][1][q] += F1 * fw[r][1] + g * dy;
+          u[r][2][q] += F1 * fw[r][2] + g * dz;
+          if (h > 0) {
+            const float gi =
+                Bq * (dx * fi[r][0][q] + dy * fi[r][1][q] + dz * fi[r][2][q]);
+            tp[r][0] += F1 * fi[r][0][q] + gi * dx;
+            tp[r][1] += F1 * fi[r][1][q] + gi * dy;
+            tp[r][2] += F1 * fi[r][2][q] + gi * dz;
+          }
         }
       }
-      if (h > 0) {
-        wpart[w] = t0;
-        wpart[W + w] = t1;
-        wpart[2 * W + w] = t2;
+      if (transposed) {
+#pragma unroll
+        for (int r = 0; r < NRHS; ++r)
+#pragma unroll
+          for (int k = 0; k < 3; ++k) wpart[(3 * r + k) * W + w] = tp[r][k];
       }
     }
 
@@ -217,29 +257,32 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
 #pragma unroll
     for (int q = 0; q < MAX_RPW; ++q) {
       if (q >= rpw) break;
-      float v0 = u0[q], v1 = u1[q], v2 = u2[q];
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        v0 += __shfl_xor_sync(0xffffffffu, v0, off);
-        v1 += __shfl_xor_sync(0xffffffffu, v1, off);
-        v2 += __shfl_xor_sync(0xffffffffu, v2, off);
-      }
-      if (lane == 0) {
-        const int i = t * R + warp + WARPS * q;
-        float* out = b.uo + ((long long)c * 9 + h) * 3 * S + i;
-        out[0] = v0;
-        out[S] = v1;
-        out[2 * S] = v2;
+      for (int r = 0; r < NRHS; ++r) {
+        float v0 = u[r][0][q], v1 = u[r][1][q], v2 = u[r][2][q];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          v0 += __shfl_xor_sync(0xffffffffu, v0, off);
+          v1 += __shfl_xor_sync(0xffffffffu, v1, off);
+          v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+        }
+        if (lane == 0) {
+          const int i = t * R + warp + WARPS * q;
+          float* out = b.uo + (((long long)c * 9 + h) * NF + 3 * r) * S + i;
+          out[0] = v0;
+          out[S] = v1;
+          out[2 * S] = v2;
+        }
       }
     }
 
     // transposed lanes: fixed-order sum of the warp partials into ranks
-    if (h > 0) {
+    if (transposed) {
       __syncthreads();
       for (int w = tid; w < W; w += THREADS) {
-        for (int k = 0; k < 3; ++k) {
+        for (int k = 0; k < NF; ++k) {
           float s = 0.f;
-          for (int p = 0; p < WARPS; ++p) s += part[(p * 3 + k) * W + w];
+          for (int p = 0; p < WARPS; ++p) s += part[(p * NF + k) * W + w];
           acc[k * SW + j0 + w] += s;
         }
       }
@@ -249,10 +292,10 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
 
   // fold cyclic ranks to slots: ranks < nv are slots, ranks in [nv, nv + W)
   // wrap to slots [0, W)
-  if (h > 0) {
-    float* out = b.uo + ((long long)c * 9 + 4 + h) * 3 * S;
+  if (transposed) {
+    float* out = b.uo + ((long long)c * 9 + 4 + h) * NF * S;
     for (int s = tid; s < S; s += THREADS) {
-      for (int k = 0; k < 3; ++k) {
+      for (int k = 0; k < NF; ++k) {
         const float head = s < nv ? acc[k * SW + s] : 0.f;
         const float tail = s < W ? acc[k * SW + nv + s] : 0.f;
         out[k * S + s] = head + tail;
@@ -261,9 +304,14 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
   }
 }
 
-template <bool BUILD, typename AT>
-cudaError_t launch(const Band& b, size_t smem, cudaStream_t stream) {
-  auto kernel = banded_kernel<BUILD, AT>;
+template <int MODE, int NRHS, typename AT>
+cudaError_t launch(const Band& b, cudaStream_t stream) {
+  constexpr int NF = 3 * NRHS;
+  const size_t smem =
+      sizeof(float) * ((4 + NF) * (size_t)b.S + NF * (size_t)(b.S + b.W) +
+                       (size_t)WARPS * NF * b.W +
+                       (MODE != MODE_MATVEC ? 4 + 4 * b.n_coef : 0));
+  auto kernel = banded_kernel<MODE, NRHS, AT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(b.ncx * b.ncy, N_HALF);
@@ -271,29 +319,37 @@ cudaError_t launch(const Band& b, size_t smem, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+template <typename AT>
+cudaError_t dispatch(int mode, int nrhs, const Band& b, cudaStream_t stream) {
+  if (mode == MODE_BUILD)
+    return nrhs == 0 ? launch<MODE_BUILD, 0, AT>(b, stream)
+                     : cudaErrorInvalidValue;
+  if (nrhs == 1)
+    return mode == MODE_BUILD_MV ? launch<MODE_BUILD_MV, 1, AT>(b, stream)
+                                 : launch<MODE_MATVEC, 1, AT>(b, stream);
+  if (nrhs == 2)
+    return mode == MODE_BUILD_MV ? launch<MODE_BUILD_MV, 2, AT>(b, stream)
+                                 : launch<MODE_MATVEC, 2, AT>(b, stream);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
-extern "C" int pse_banded(int build, const float* px, const float* py,
+extern "C" int pse_banded(int mode, int nrhs, const float* px, const float* py,
                           const float* pz, const float* mask, const float* f,
                           const int* j0, const float* zsh, const int* n_valid,
                           const float* cheb, int n_coef, float mid, float cut2,
                           float dr2, int ncx, int ncy, int S, int R, int W,
                           float Lx, float Ly, float Lz, float tilt, int a_bf16,
                           void* A, float* uo, cudaStream_t stream) {
-  if (R % WARPS != 0 || R > WARPS * MAX_RPW || S % R != 0 || W % 32 != 0)
+  if (R % WARPS != 0 || R > WARPS * MAX_RPW || S % R != 0 || W % 32 != 0 ||
+      mode < MODE_MATVEC || mode > MODE_BUILD)
     return (int)cudaErrorInvalidValue;
   Band b{px,  py,   pz,   mask, f,   j0,  zsh, n_valid, cheb, n_coef, mid,
          cut2, dr2, ncx, ncy, S,   R,   W,   S / R,   Lx,   Ly,     Lz,
          tilt, A,   uo};
-  const size_t smem =
-      sizeof(float) * (7 * (size_t)S + 3 * (size_t)(S + W) +
-                       (size_t)WARPS * 3 * W + (build ? 4 + 4 * n_coef : 0));
-  cudaError_t e;
-  if (a_bf16)
-    e = build ? launch<true, __nv_bfloat16>(b, smem, stream)
-              : launch<false, __nv_bfloat16>(b, smem, stream);
-  else
-    e = build ? launch<true, float>(b, smem, stream)
-              : launch<false, float>(b, smem, stream);
+  const cudaError_t e = a_bf16
+                            ? dispatch<__nv_bfloat16>(mode, nrhs, b, stream)
+                            : dispatch<float>(mode, nrhs, b, stream);
   return (int)e;
 }

@@ -1,18 +1,22 @@
-"""The PSE Brownian-dynamics step on the banded engine (thermal, force-free).
+"""The PSE Brownian-dynamics step and U = M F on the banded engine.
 
 PyTorch counterpart of ``pse_tpu/integrator.py`` for the slice the port
-covers: ``engine="banded"``, ``thermal=True``, no external forces.  One step:
+covers: ``engine="banded"``, thermal or athermal, with or without external
+forces, one occupancy class.  One step:
 
-  binnings (bin_columns for the near field, bin_particles for the far field)
-  -> band windows + far-field factors -> Hermitian wave noise -> irfft
-  -> far-field contract -> fused near-field build + first Lanczos matvec
-  -> Lanczos M_real^{1/2} psi -> Euler update with shear advection -> wrap
+  binnings (bin_columns for the near field, bin_particles for the far field;
+  the forces ride both sorts) -> band windows + far-field factors
+  -> [forces: spread -> rfft -> Green] (+ Hermitian wave noise) -> irfft
+  -> far-field contract -> fused near-field build + first matvec (two
+  right-hand sides, the forces and the first Lanczos vector, when both
+  exist) -> Lanczos M_real^{1/2} psi -> Euler update with shear advection
+  -> wrap
 
-Randomness is keyed by (hash_seed(seed), step) on a ``torch.Generator`` of
-the step's device, so a rerun on one device is bitwise equal and a step's
-draws do not depend on history.  The other engines ("blocked", "gather"),
-external forces and ``mobility()`` are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item.
+``mobility`` is the deterministic U = M F of the same pieces.  Randomness is
+keyed by (hash_seed(seed), step) on a ``torch.Generator`` of the step's
+device, so a rerun on one device is bitwise equal and a step's draws do not
+depend on history.  The other engines ("blocked", "gather") are not ported
+yet and raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from .params import PSEParams, gridk_arrays
 from .ops import banded_nearfield as bdn
 from .ops import column_farfield as cff
 from .ops import lanczos, noise
+from .ops.farfield import apply_green
 from .ops.chebyshev import ChebPair, fit_pair_functions
 
 # Lanczos shrink-probe period: every K-th step starts the convergence test
@@ -44,7 +49,7 @@ OVF_LANCZOS = 8   # Lanczos m_max hit unconverged
 
 _NOT_PORTED = (
     "not ported to pse_tpu_torch yet (ROADMAP.md, Queue A: {what}); the "
-    "port runs the thermal, force-free banded engine"
+    "port runs the banded engine"
 )
 
 
@@ -93,9 +98,9 @@ def state_from_arrays(d, device="cuda") -> State:
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """Static configuration of the step: always the banded engine, thermal,
-    without external forces (the slice the port covers; the JAX package's
-    ``engine``/``thermal``/``has_forces`` fields have one value here)."""
+    """Static configuration of the step: always the banded engine (the JAX
+    package's ``engine`` field has one value here).  ``thermal`` runs the
+    Brownian branches, ``has_forces`` the deterministic M F path."""
 
     params: PSEParams
     cheb: ChebPair
@@ -104,6 +109,15 @@ class StepConfig:
     m_max: int = 24
     seed: int = 0
     device: str = "cuda"
+    thermal: bool = True
+    has_forces: bool = True
+
+    def __post_init__(self):
+        if not self.thermal and not self.has_forces:
+            raise ValueError(
+                "StepConfig with thermal=False requires has_forces=True "
+                "(an athermal zero-force step is M·0, like the reference)"
+            )
 
 
 def _cheb_tol(block_dtype: str) -> float:
@@ -142,10 +156,9 @@ def make_config(
     """Build a StepConfig with the JAX package's banded-engine shapes.
 
     Raises NotImplementedError where the JAX package would run code the
-    port does not have: another engine, external forces (or an athermal
-    run, which the JAX package turns into one), several halo slabs, and a
-    geometry too small to band (the JAX package then falls back to the
-    blocked engine).  ``max_neighbors`` and ``nbr_subdiv`` size the gather
+    port does not have: another engine, several halo slabs, and a geometry
+    too small to band (the JAX package then falls back to the blocked
+    engine).  ``max_neighbors`` and ``nbr_subdiv`` size the gather
     engine and ``positions`` the occupancy classes; neither is ported, so
     they are accepted and unused."""
     del max_neighbors, nbr_subdiv, positions
@@ -153,8 +166,6 @@ def make_config(
         raise _not_ported(f"the {engine!r} engine")
     if not thermal and not has_forces:
         has_forces = True               # an athermal step is M·0
-    if has_forces:
-        raise _not_ported("external forces and the with-forces step")
     if shard_slabs != 1:
         raise _not_ported("parallel/ halo slabs")
     if block_dtype is None:
@@ -183,6 +194,7 @@ def make_config(
     return StepConfig(
         params=params, cheb=cheb, band_spec=band_spec, colff_spec=colff_spec,
         m_max=m_max, seed=seed, device=str(torch.device(device)),
+        thermal=bool(thermal), has_forces=bool(has_forces),
     )
 
 
@@ -196,7 +208,7 @@ def grow_config(config: StepConfig, factor: float = 1.4,
         flags = OVF_NF | OVF_BAND | OVF_FF | OVF_LANCZOS
     flags = int(flags)
     changes = {}
-    if flags & OVF_LANCZOS:
+    if flags & OVF_LANCZOS and config.thermal:
         changes["m_max"] = min(max(config.m_max * 2, config.m_max + 8), 100)
     if flags & OVF_FF:
         bins = config.colff_spec.bins
@@ -251,19 +263,28 @@ class BandedCtx(NamedTuple):
     ff_factors: object     # cff.ColFactors
     tilt: float
     blocks: object = None  # (1, C, 2, S, 5W) after build_mv (None on CPU)
+    nf_f: object = None    # (3, C, cap) forces binned with the near field
+    ff_f: object = None    # (3, C_ff, cap_ff) ditto on the far-field grid
 
 
 def _ovf(flag: torch.Tensor, bit: int) -> torch.Tensor:
     return flag.to(torch.int32) * bit
 
 
-def prepare_banded(config: StepConfig, pos, box: Box):
+def prepare_banded(config: StepConfig, pos, box: Box, forces=None):
     """Binnings, band windows and far-field factors; returns (ctx, the
-    overflow mask as a () int32 tensor)."""
+    overflow mask as a () int32 tensor).  ``forces`` (N, 3), when given,
+    ride both binning sorts into ctx.nf_f / ctx.ff_f (zero in pad slots)."""
     p = config.params
     bs = config.band_spec
-    nf_bins = bin_columns(pos, box, bs.bins)
-    ff_bins = bin_particles(pos, box, config.colff_spec.bins)
+    nf_f = ff_f = None
+    if forces is None:
+        nf_bins = bin_columns(pos, box, bs.bins)
+        ff_bins = bin_particles(pos, box, config.colff_spec.bins)
+    else:
+        nf_bins, nf_f = bin_columns(pos, box, bs.bins, values=forces)
+        ff_bins, ff_f = bin_particles(pos, box, config.colff_spec.bins,
+                                      values=forces)
     # the CUDA kernels read the stored half stencil's windows only; the
     # plain matvec (CPU) gathers all 9 offsets
     offs = bs.offsets if pos.device.type == "cpu" else bs.offsets[:bdn.N_HALF]
@@ -273,7 +294,7 @@ def prepare_banded(config: StepConfig, pos, box: Box):
     overflow = (_ovf(nf_bins.overflow, OVF_NF) | _ovf(ff_bins.overflow, OVF_FF)
                 | _ovf(band_overflow, OVF_BAND))
     return BandedCtx(nf_bins, ff_bins, j0, n_valid, zsh, factors,
-                     box.tilt_xy), overflow
+                     box.tilt_xy, nf_f=nf_f, ff_f=ff_f), overflow
 
 
 def _band_args(config: StepConfig, ctx: BandedCtx):
@@ -284,7 +305,7 @@ def _band_args(config: StepConfig, ctx: BandedCtx):
 
 def build_mv(config: StepConfig, ctx: BandedCtx, ft):
     """Fused build of A + the first near-field matvec: (ctx with blocks,
-    M_real ft)."""
+    M_real ft) for ft (3, C, S) or two right-hand sides (6, C, S)."""
     blocks, u = bdn.build_mv_banded(*_band_args(config, ctx), ft,
                                     config.params.self_mobility)
     return ctx._replace(blocks=blocks), u
@@ -296,18 +317,43 @@ def mreal_t(config: StepConfig, ctx: BandedCtx, cells):
                              config.params.self_mobility)
 
 
-def _far_field(config: StepConfig, ctx: BandedCtx, box: Box, T, dt,
-               generator, uniforms):
-    """Wave-space Brownian velocities (N, 3): Hermitian noise -> irfft ->
-    contract."""
+def _far_field(config: StepConfig, ctx: BandedCtx, box: Box, noise_args):
+    """Wave-space velocities (N, 3): [spread the binned forces ctx.ff_f ->
+    rfft -> Green] (+ Hermitian noise when ``noise_args`` = (T, dt,
+    generator, uniforms)) -> irfft -> contract."""
     p = config.params
     kvec, W = gridk_arrays(p, box.tilt_xy, ctx.j0.device, half=True)
-    ghat = noise.wave_space_noise_hat_half(p, kvec, W, T, dt, generator,
-                                           uniforms)
+    ghat = None
+    if ctx.ff_f is not None:
+        grid = cff.spread_col_kernel(ctx.ff_f, config.colff_spec, p,
+                                     ctx.ff_factors)
+        ghat = apply_green(torch.fft.rfftn(grid, dim=(1, 2, 3)), kvec, W)
+    if noise_args is not None:
+        T, dt, generator, uniforms = noise_args
+        nh = noise.wave_space_noise_hat_half(p, kvec, W, T, dt, generator,
+                                             uniforms)
+        ghat = nh if ghat is None else ghat + nh
     grid_v = torch.fft.irfftn(ghat, s=(p.Nx, p.Ny, p.Nz), dim=(1, 2, 3))
     u_cells = cff.contract_col_kernel(grid_v.to(torch.float32),
                                       config.colff_spec, p, ctx.ff_factors)
     return vec_from_cells(ctx.ff_bins, config.colff_spec.bins, u_cells)
+
+
+def _nf_back(config: StepConfig, ctx: BandedCtx, cells):
+    """(3, C, S) near-field slots -> (N, 3)."""
+    return vec_from_cells(ctx.nf_bins, config.band_spec.bins, cells)
+
+
+def _velocity_scale(T, dt) -> float:
+    """sqrt(2 T / dt) in float32."""
+    return float(np.float32(math.sqrt(2.0 * float(np.float32(T))
+                                      / float(np.float32(dt)))))
+
+
+def _as_f32(x, device) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.from_numpy(np.array(x, np.float32)).to(device)
 
 
 def _psi(config: StepConfig, ctx: BandedCtx, generator, uniforms):
@@ -318,11 +364,13 @@ def _psi(config: StepConfig, ctx: BandedCtx, generator, uniforms):
     return u * ctx.nf_bins.mask.reshape(1, C, spec.cap)
 
 
-def step(config: StepConfig, state: State, T, dt, shear_rate,
+def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
          new_tilt=None, uniforms=None):
     """Advance one Euler-Maruyama step (Stokes.cu:137-192 semantics).
 
-    T: temperature; dt: timestep; shear_rate: current rate (adds rate*y to
+    forces: (N, 3) forces at the current positions (read only when
+    config.has_forces), or None for zero forces; T: temperature (the thermal branch is
+    config.thermal); dt: timestep; shear_rate: current rate (adds rate*y to
     the x velocity); new_tilt: next-step box tilt (None keeps the current).
     ``uniforms``: optional (psi (3, C, cap), wave (6, Nx, Ny, Nz//2+1)) raw
     draws replacing the step's generator (cross-package tests).
@@ -332,25 +380,42 @@ def step(config: StepConfig, state: State, T, dt, shear_rate,
     p = config.params
     pos = state.pos
     box = _box_of(config, state.tilt_xy)
-    gen = None if uniforms is not None else step_generator(config, state.step)
+    gen = None
+    if config.thermal and uniforms is None:
+        gen = step_generator(config, state.step)
     u_psi, u_wave = (None, None) if uniforms is None else uniforms
+    f = None
+    if config.has_forces:
+        f = (torch.zeros_like(pos) if forces is None
+             else _as_f32(forces, pos.device))
 
-    ctx, overflow = prepare_banded(config, pos, box)
-    u = _far_field(config, ctx, box, T, dt, gen, u_wave)
+    ctx, overflow = prepare_banded(config, pos, box, f)
+    u = _far_field(config, ctx, box,
+                   (T, dt, gen, u_wave) if config.thermal else None)
 
-    psi = _psi(config, ctx, gen, u_psi)
-    vnorm = torch.sqrt(torch.sum(psi * psi))
-    ctx, w0 = build_mv(config, ctx, psi / vnorm)
-    probe = int(state.step % M_SHRINK_PERIOD == 0)
-    u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
-        lambda vt: mreal_t(config, ctx, vt), psi, p.error,
-        max(state.m_lanczos - probe, 2), config.m_max, w0=w0,
-    )
-    if hit_cap:
-        overflow = overflow | OVF_LANCZOS
-    scale = float(np.float32(math.sqrt(2.0 * float(np.float32(T))
-                                       / float(np.float32(dt)))))
-    u = u + scale * vec_from_cells(ctx.nf_bins, config.band_spec.bins, u_sqrt)
+    m_used = state.m_lanczos
+    if config.thermal:
+        psi = _psi(config, ctx, gen, u_psi)
+        vnorm = torch.sqrt(torch.sum(psi * psi))
+        if config.has_forces:
+            # M F rides the build as a second right-hand side: one pass
+            # over A covers the build, M F and the first Lanczos matvec
+            ctx, u0 = build_mv(config, ctx, torch.cat([ctx.nf_f, psi / vnorm]))
+            u = u + _nf_back(config, ctx, u0[0:3])
+            w0 = u0[3:6]
+        else:
+            ctx, w0 = build_mv(config, ctx, psi / vnorm)
+        probe = int(state.step % M_SHRINK_PERIOD == 0)
+        u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
+            lambda vt: mreal_t(config, ctx, vt), psi, p.error,
+            max(state.m_lanczos - probe, 2), config.m_max, w0=w0,
+        )
+        if hit_cap:
+            overflow = overflow | OVF_LANCZOS
+        u = u + _velocity_scale(T, dt) * _nf_back(config, ctx, u_sqrt)
+    else:
+        ctx, uF = build_mv(config, ctx, ctx.nf_f)
+        u = u + _nf_back(config, ctx, uF)
 
     vel = u.clone()
     vel[:, 0] += float(np.float32(shear_rate)) * pos[:, 1]
@@ -372,11 +437,11 @@ def brownian_displacement(config: StepConfig, pos, tilt_xy, step: int,
     draws it (wave part through the FFT pipeline, real part by Lanczos).
     Returns (u (N, 3), m_used, overflow mask)."""
     p = config.params
-    pos = torch.from_numpy(np.array(pos, np.float32)).to(config.device)
+    pos = _as_f32(pos, config.device)
     box = _box_of(config, tilt_xy)
     gen = step_generator(config, step)
     ctx, overflow = prepare_banded(config, pos, box)
-    u_wave = _far_field(config, ctx, box, T, dt, gen, None)
+    u_wave = _far_field(config, ctx, box, (T, dt, gen, None))
     psi = _psi(config, ctx, gen, None)
     vnorm = torch.sqrt(torch.sum(psi * psi))
     ctx, w0 = build_mv(config, ctx, psi / vnorm)
@@ -384,14 +449,22 @@ def brownian_displacement(config: StepConfig, pos, tilt_xy, step: int,
         lambda vt: mreal_t(config, ctx, vt), psi, p.error, m_start,
         config.m_max, w0=w0,
     )
-    scale = float(np.float32(math.sqrt(2.0 * float(np.float32(T))
-                                       / float(np.float32(dt)))))
-    u_real = scale * vec_from_cells(ctx.nf_bins, config.band_spec.bins, u_sqrt)
+    u_real = _velocity_scale(T, dt) * _nf_back(config, ctx, u_sqrt)
     if hit_cap:
         overflow = overflow | OVF_LANCZOS
     return u_wave + u_real, m_used, overflow
 
 
 def mobility(config: StepConfig, pos, forces, tilt_xy=0.0):
-    """Deterministic U = M F: not ported yet (the with-forces slice)."""
-    raise _not_ported("mobility() and the with-forces path")
+    """Deterministic U = M F, the public validation matvec
+    (gpu_stokes_Mobility_wrap, Mobility.cu:729-782).
+
+    Returns (velocities (N, 3), the capacity overflow mask as a () int32
+    tensor)."""
+    pos = _as_f32(pos, config.device)
+    forces = _as_f32(forces, config.device)
+    box = _box_of(config, tilt_xy)
+    ctx, overflow = prepare_banded(config, pos, box, forces)
+    ctx, u0 = build_mv(config, ctx, ctx.nf_f)
+    u_real = _nf_back(config, ctx, u0)
+    return u_real + _far_field(config, ctx, box, None), overflow

@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fill.cu", "banded.cu", "contract.cu")
+SOURCES = ("fill.cu", "banded.cu", "contract.cu", "spread.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -38,10 +38,11 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pse_fill_cells": [_P, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P],
-    "pse_banded": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
-                   _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P],
+    "pse_banded": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
+                   _F, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P],
     "pse_contract_col": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P, _P],
+    "pse_spread_col": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
 }
 
 _lib = None

@@ -12,10 +12,12 @@ and the dyadic d d^T part is rebuilt from f32 coordinates.
 
 Host side: ``make_band_spec``, ``full_xy_offsets``, ``compute_windows``,
 ``_finish_u``.  The kernels (``csrc/banded.cu``) are wrapped by
-``build_mv_banded`` (build A and apply it to the first right-hand side) and
-``matvec_banded`` (apply the stored A).  On CPU tensors both wrappers run
-``matvec_banded_reference``, the plain version: all 9 offsets, windows
-gathered, pair functions rebuilt per call, unrounded float32.
+``build_mv_banded`` (build A and apply it to the first one or two
+right-hand sides), ``matvec_banded`` (apply the stored A to one or two) and
+``build_banded_blocks`` (build A alone).  On CPU tensors the matvec wrappers
+run ``matvec_banded_reference``, the plain version: all 9 offsets, windows
+gathered, pair functions rebuilt per call, unrounded float32; the build runs
+``build_banded_blocks_reference``.
 """
 
 from __future__ import annotations
@@ -167,21 +169,29 @@ def extend_slots(arr: torch.Tensor, spec: BandSpec) -> torch.Tensor:
     return torch.cat([arr, tail], dim=-1)
 
 
+def _pair_coefficients(dx, dy, dz, mi, mj, *, cheb, cut2, dr2, same_slot):
+    """(imrr, bco, d^2) of every (row, lane) pair: the pair functions at
+    valid separations dr <= d < rcut of occupied, distinct slots, zero
+    elsewhere; d^2 is 1 where the pair is not valid."""
+    d2 = dx * dx + dy * dy + dz * dz
+    valid = (mi * mj > 0.0) & (d2 < cut2) & (d2 >= dr2) & ~same_slot
+    d2_safe = torch.where(valid, d2, torch.ones_like(d2))
+    uf1, uf2 = eval_pair_functions(cheb, torch.sqrt(d2_safe))
+    zero = torch.zeros_like(uf1)
+    return (torch.where(valid, uf1, zero), torch.where(valid, uf2 - uf1, zero),
+            d2_safe)
+
+
 def _pair_components(xi, yi, zi, mi, xj, yj, zj, mj, tilt, *, L, cheb,
                      cut2, dr2, same_slot):
     """The six symmetric RPY-Ewald tensor components of every (row, lane)
     pair, with the minimum image of the tilted box (plain version)."""
     dx, dy, dz = min_image_components(Box(L, tilt), xi - xj, yi - yj,
                                       zi - zj)
-    d2 = dx * dx + dy * dy + dz * dz
-    valid = (mi * mj > 0.0) & (d2 < cut2) & (d2 >= dr2) & ~same_slot
-    d2_safe = torch.where(valid, d2, torch.ones_like(d2))
-    dist = torch.sqrt(d2_safe)
-    uf1, uf2 = eval_pair_functions(cheb, dist)
-    zero = torch.zeros_like(uf1)
-    imrr = torch.where(valid, uf1, zero)
-    bco = torch.where(valid, uf2 - uf1, zero)
-    inv_d = 1.0 / dist
+    imrr, bco, d2 = _pair_coefficients(dx, dy, dz, mi, mj, cheb=cheb,
+                                       cut2=cut2, dr2=dr2,
+                                       same_slot=same_slot)
+    inv_d = 1.0 / torch.sqrt(d2)
     ex, ey, ez = dx * inv_d, dy * inv_d, dz * inv_d
     return (imrr + bco * ex * ex, bco * ex * ey, bco * ex * ez,
             imrr + bco * ey * ey, bco * ey * ez, imrr + bco * ez * ez)
@@ -277,11 +287,16 @@ def _cheb_operand(cheb: ChebPair, device: str) -> torch.Tensor:
     return device_coeffs(cheb, device)
 
 
-def _launch_banded(build: bool, bins: CellBins, tilt_xy, spec: BandSpec,
+# csrc/banded.cu modes
+MODE_MATVEC, MODE_BUILD_MV, MODE_BUILD = 0, 1, 2
+
+
+def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
                    cheb: ChebPair, L, ewald_cut, ewald_dr, j0, n_valid, zsh,
-                   f_cells, blocks=None):
-    """One launch of csrc/banded.cu; returns (blocks, uo (C, 5, 3, S)) with
-    the forward planes summed in torch."""
+                   f_cells=None, blocks=None):
+    """One launch of csrc/banded.cu; returns (blocks, uo (C, 9, 3 nrhs, S)
+    or None, rc).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None in
+    MODE_BUILD."""
     if tuple(spec.offsets[:N_HALF]) != full_xy_offsets()[:N_HALF]:
         raise ValueError("banded kernels assume full_xy_offsets() order")
     ncx, ncy, _ = spec.bins.n_cells
@@ -290,11 +305,18 @@ def _launch_banded(build: bool, bins: CellBins, tilt_xy, spec: BandSpec,
     if R % 8 or R > 32 or S % R or W % 64 or W > 256:
         raise ValueError(f"banded kernels take R in 8..32 (multiple of 8) "
                          f"dividing S and W in 64..256: R={R} S={S} W={W}")
-    dev = f_cells.device
+    dev = bins.px.device
     a_dtype = getattr(torch, spec.block_dtype)
-    if f_cells.shape != (3, C, S):
-        raise ValueError("banded kernels take one right-hand side (3, C, S)")
-    f = f_cells.to(torch.float32).contiguous()
+    if (f_cells is None) != (mode == MODE_BUILD):
+        raise ValueError("banded kernels take right-hand sides unless they "
+                         "only build")
+    f, nrhs = None, 0
+    if f_cells is not None:
+        nrhs = f_cells.shape[0] // 3
+        if f_cells.shape not in ((3, C, S), (6, C, S)):
+            raise ValueError("banded kernels take one or two right-hand "
+                             "sides, (3, C, S) or (6, C, S)")
+        f = f_cells.to(torch.float32).contiguous()
     coords = [t.to(torch.float32).contiguous()
               for t in (bins.px, bins.py, bins.pz, bins.mask)]
     j0h = j0[:N_HALF].to(torch.int32).contiguous()
@@ -302,23 +324,25 @@ def _launch_banded(build: bool, bins: CellBins, tilt_xy, spec: BandSpec,
     nv = n_valid.to(torch.int32).contiguous()
     if j0h.shape != (N_HALF, C, T) or zsh.shape != (N_HALF, C, T):
         raise ValueError("banded kernels take (>=5, C, T) window tables")
-    if build:
+    if mode != MODE_MATVEC:
         blocks = torch.empty((1, C, 2, S, N_HALF * W), dtype=a_dtype,
                              device=dev)
     elif (blocks.shape != (1, C, 2, S, N_HALF * W) or blocks.dtype != a_dtype
           or not blocks.is_contiguous()):
         raise ValueError("matvec_banded: blocks do not match the spec")
     cheb_dev = _cheb_operand(cheb, str(dev))
-    uo = torch.empty((C, 9, 3, S), dtype=torch.float32, device=dev)
+    uo = (None if nrhs == 0 else
+          torch.empty((C, 9, 3 * nrhs, S), dtype=torch.float32, device=dev))
     Lf = [float(np.float32(x)) for x in L]
     p = kernels.ptr
     rc = kernels.library().pse_banded(
-        int(build), *(p(t) for t in coords), p(f), p(j0h), p(zsh), p(nv),
+        mode, nrhs, *(p(t) for t in coords), p(f), p(j0h), p(zsh), p(nv),
         p(cheb_dev), cheb.degree + 1, float(np.float32(cheb.mid)),
         float(np.float32(float(ewald_cut) ** 2)),
         float(np.float32(float(ewald_dr) ** 2)),
         ncx, ncy, S, R, W, *Lf, float(np.float32(tilt_xy)),
-        int(a_dtype == torch.bfloat16), p(blocks), p(uo), kernels.stream_of(f),
+        int(a_dtype == torch.bfloat16), p(blocks), p(uo),
+        kernels.stream_of(coords[0]),
     )
     return blocks, uo, rc
 
@@ -330,20 +354,31 @@ def _fold_planes(uo):
                       uo[:, N_HALF:]], dim=1)
 
 
+def _reference_per_rhs(f_cells, matvec):
+    """The plain version on one or two right-hand sides: one plain matvec
+    per right-hand side, concatenated, as the JAX package's off-TPU path
+    does."""
+    return torch.cat([matvec(f_cells[k:k + 3])
+                      for k in range(0, f_cells.shape[0], 3)])
+
+
 def build_mv_banded(bins: CellBins, tilt_xy, spec: BandSpec, cheb: ChebPair,
                     L, ewald_cut, ewald_dr, j0, n_valid, zsh, f_cells,
                     self_mobility):
     """(blocks, u): build A (1, C, 2, S, 5W) in the block dtype and apply
-    the rounded coefficients to ``f_cells`` (3, C, S) in the same kernel.
+    the rounded coefficients to ``f_cells`` (3 nrhs, C, S), nrhs 1 or 2, in
+    the same kernel.
 
-    On CPU tensors: (None, ``matvec_banded_reference``); ``j0``/``zsh`` then
-    cover all 9 offsets (the kernel reads the first 5)."""
+    On CPU tensors: (None, ``matvec_banded_reference`` per right-hand
+    side); ``j0``/``zsh`` then cover all 9 offsets (the kernel reads the
+    first 5)."""
     if f_cells.device.type == "cpu":
-        return None, matvec_banded_reference(
-            bins, tilt_xy, spec, cheb, L, ewald_cut, ewald_dr, j0, n_valid,
-            f_cells, self_mobility)
-    blocks, uo, rc = _launch_banded(True, bins, tilt_xy, spec, cheb, L,
-                                    ewald_cut, ewald_dr, j0, n_valid, zsh,
+        return None, _reference_per_rhs(
+            f_cells, lambda f: matvec_banded_reference(
+                bins, tilt_xy, spec, cheb, L, ewald_cut, ewald_dr, j0,
+                n_valid, f, self_mobility))
+    blocks, uo, rc = _launch_banded(MODE_BUILD_MV, bins, tilt_xy, spec, cheb,
+                                    L, ewald_cut, ewald_dr, j0, n_valid, zsh,
                                     f_cells)
     build_mv_banded.launches += 1
     kernels.check("build_mv_banded", rc)
@@ -356,14 +391,17 @@ build_mv_banded.launches = 0
 def matvec_banded(blocks, bins: CellBins, tilt_xy, spec: BandSpec,
                   cheb: ChebPair, L, ewald_cut, ewald_dr, j0, n_valid, zsh,
                   f_cells, self_mobility):
-    """u = M_real f_cells (3, C, S) from the stored ``blocks``.
+    """u = M_real f_cells (3 nrhs, C, S), nrhs 1 or 2, from the stored
+    ``blocks``.
 
-    On CPU tensors: ``matvec_banded_reference`` (``blocks`` unused)."""
+    On CPU tensors: ``matvec_banded_reference`` per right-hand side
+    (``blocks`` unused)."""
     if f_cells.device.type == "cpu":
-        return matvec_banded_reference(
-            bins, tilt_xy, spec, cheb, L, ewald_cut, ewald_dr, j0, n_valid,
-            f_cells, self_mobility)
-    _, uo, rc = _launch_banded(False, bins, tilt_xy, spec, cheb, L,
+        return _reference_per_rhs(
+            f_cells, lambda f: matvec_banded_reference(
+                bins, tilt_xy, spec, cheb, L, ewald_cut, ewald_dr, j0,
+                n_valid, f, self_mobility))
+    _, uo, rc = _launch_banded(MODE_MATVEC, bins, tilt_xy, spec, cheb, L,
                                ewald_cut, ewald_dr, j0, n_valid, zsh, f_cells,
                                blocks=blocks)
     matvec_banded.launches += 1
@@ -372,3 +410,98 @@ def matvec_banded(blocks, bins: CellBins, tilt_xy, spec: BandSpec,
 
 
 matvec_banded.launches = 0
+
+
+def window_geometry(bins: CellBins, tilt_xy, spec: BandSpec, L, j0, n_valid,
+                    zsh, h: int):
+    """The kernels' view of stored offset ``h``: for every (column, tile,
+    row, lane) the separation d = own - window (window coordinates shifted by
+    the column's xy image, the cyclic z wrap and the tile's zsh, as the
+    kernels shift them), the occupancies, the self-pair mask, and the
+    window's (neighbour column, clamped slot).
+
+    Returns (dx, dy, dz (C, T, R, W), mi (C, T, R, 1), mj (C, T, 1, W),
+    same (C, T, R, W) bool, nbr (C,), slot (C, T, W))."""
+    ncx, ncy, _ = spec.bins.n_cells
+    C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
+    T = S // R
+    dev = bins.px.device
+    Lx, Ly, Lz = (float(np.float32(x)) for x in L)
+    tilt = float(np.float32(tilt_xy))
+    ox, oy = spec.offsets[h]
+    cx = torch.arange(C, device=dev) // ncy
+    cy = torch.arange(C, device=dev) % ncy
+    nbr = ((cx + ox) % ncx) * ncy + (cy + oy) % ncy
+    wx = ((cx + ox >= ncx).float() - (cx + ox < 0).float())[:, None, None]
+    wy = ((cy + oy >= ncy).float() - (cy + oy < 0).float())[:, None, None]
+    sy = wy * Ly
+    sx = wx * Lx + tilt * sy
+    lanes = torch.arange(W, device=dev)
+    nv = n_valid.long()[nbr][:, None, None]                    # (C, 1, 1)
+    rank = j0[h].long()[:, :, None] + lanes                     # (C, T, W)
+    wrap = rank >= nv
+    j = torch.where(wrap, rank - nv, rank)
+    slot = torch.clamp(j, max=S - 1)
+    col = nbr[:, None, None].expand_as(slot)
+
+    def window(a):
+        return a[col, slot]                                     # (C, T, W)
+
+    xw = window(bins.px) + sx
+    yw = window(bins.py) + sy
+    zw = (window(bins.pz) + torch.where(wrap, Lz, 0.0)) - zsh[h][:, :, None]
+    mw = torch.where(lanes < nv, window(bins.mask), 0.0)
+    own = [a.reshape(C, T, R, 1) for a in (bins.px, bins.py, bins.pz,
+                                           bins.mask)]
+    islot = (torch.arange(T, device=dev)[:, None] * R
+             + torch.arange(R, device=dev))[None, :, :, None]  # (1, T, R, 1)
+    same = (h == 0) & (j[:, :, None, :] == islot)
+    return (own[0] - xw[:, :, None], own[1] - yw[:, :, None],
+            own[2] - zw[:, :, None], own[3], mw[:, :, None], same, nbr, slot)
+
+
+def build_banded_blocks_reference(bins: CellBins, tilt_xy, spec: BandSpec,
+                                  cheb: ChebPair, L, ewald_cut, ewald_dr, j0,
+                                  n_valid, zsh) -> torch.Tensor:
+    """Plain version of the build: A (1, C, 2, S, 5W) = (imrr, bco/d^2) of
+    the 5 stored offsets side by side on the lane axis, from the pair
+    coefficients ``matvec_banded_reference`` uses, rounded to the block
+    dtype."""
+    ncx, ncy, _ = spec.bins.n_cells
+    C, S, W = ncx * ncy, spec.bins.cap, spec.window
+    planes = []
+    for h in range(N_HALF):
+        dx, dy, dz, mi, mj, same, _, _ = window_geometry(
+            bins, tilt_xy, spec, L, j0, n_valid, zsh, h)
+        imrr, bco, d2 = _pair_coefficients(
+            dx, dy, dz, mi, mj, cheb=cheb, cut2=float(ewald_cut) ** 2,
+            dr2=float(ewald_dr) ** 2, same_slot=same)
+        planes.append(torch.stack([imrr, bco / d2]).reshape(2, C, S, W))
+    A = torch.cat(planes, dim=-1)                          # (2, C, S, 5W)
+    return A.transpose(0, 1)[None].to(getattr(torch, spec.block_dtype)
+                                      ).contiguous()
+
+
+def build_banded_blocks(bins: CellBins, tilt_xy, spec: BandSpec,
+                        cheb: ChebPair, L, ewald_cut, ewald_dr, j0, n_valid,
+                        zsh) -> torch.Tensor:
+    """A (1, C, 2, S, 5W) in the block dtype: the build alone
+    (``csrc/banded.cu`` in build mode) on CUDA tensors, the plain
+    ``build_banded_blocks_reference`` on CPU tensors.  It writes the A that
+    ``build_mv_banded`` writes, bit for bit.
+
+    The JAX package's build also returns pos_cyc, the prefolded window
+    coordinates its TPU matvec streams back; the port's matvec re-derives
+    them from the slot arrays, so there is none here."""
+    if bins.px.device.type == "cpu":
+        return build_banded_blocks_reference(bins, tilt_xy, spec, cheb, L,
+                                             ewald_cut, ewald_dr, j0,
+                                             n_valid, zsh)
+    blocks, _, rc = _launch_banded(MODE_BUILD, bins, tilt_xy, spec, cheb, L,
+                                   ewald_cut, ewald_dr, j0, n_valid, zsh)
+    build_banded_blocks.launches += 1
+    kernels.check("build_banded_blocks", rc)
+    return blocks
+
+
+build_banded_blocks.launches = 0

@@ -111,7 +111,11 @@ def eval_pair_functions(cheb: ChebPair, r: torch.Tensor):
 
     Out-of-domain r (r < lo or r >= hi) must be masked by the caller."""
     in_lo = r < cheb.mid
+    # tensor divisors: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, one rounding away from the kernels' true division
     a_lo, b_lo, a_hi, b_hi = _affine(cheb)
+    b_lo, b_hi = (torch.full((), b, dtype=r.dtype, device=r.device)
+                  for b in (b_lo, b_hi))
     t = torch.where(in_lo, (2.0 * r - a_lo) / b_lo, (2.0 * r - a_hi) / b_hi)
     t2 = 2.0 * t
     c1_lo, c2_lo, c1_hi, c2_hi = cheb.coeffs

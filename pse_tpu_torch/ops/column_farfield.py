@@ -1,7 +1,6 @@
-"""Z-column NUFFT far field: factors, the plain contract, the contract kernel.
+"""Z-column NUFFT far field: factors, spread and contract, and their kernels.
 
-PyTorch counterpart of ``pse_tpu/ops/column_farfield.py`` (the thermal
-slice needs the contract only; the spread is with-forces work).  Cells are
+PyTorch counterpart of ``pse_tpu/ops/column_farfield.py``.  Cells are
 full-height columns of (sx, sy, Nz) grid nodes.  For a particle p in column
 c and its 3x3 xy window G (9 sx sy xy nodes by Nz z nodes), the Gaussian
 quadrature is the bilinear form
@@ -10,8 +9,12 @@ quadrature is the bilinear form
 
 ``contract_col`` evaluates it with einsums (the plain version);
 ``contract_col_kernel`` runs ``csrc/contract.cu`` on CUDA tensors and the
-plain version on CPU tensors.  Reference semantics: gpu_stokes_Contract_kernel
-(Mobility.cu:325-477).
+plain version on CPU tensors.  The spread is its transpose: per column the
+window moments out_c = wxy_c (f_c (x) wz_c)^T, overlap-added onto the grid
+along x and y (``_windows_to_grid``); ``spread_col`` is the plain version,
+``spread_moments_kernel`` runs ``csrc/spread.cu`` for the moments on CUDA
+tensors and ``spread_col_kernel`` folds them.  Reference semantics: gpu_stokes_Spread_kernel /
+gpu_stokes_Contract_kernel (Mobility.cu:114-252, 325-477).
 """
 
 from __future__ import annotations
@@ -212,3 +215,84 @@ def contract_col_kernel(grid_real: torch.Tensor, spec: ColFfSpec,
 
 
 contract_col_kernel.launches = 0
+
+
+def _windows_to_grid(out: torch.Tensor, spec: ColFfSpec, params: PSEParams):
+    """(C, 9 sx sy, 3 Nz) window moments -> (3, Nx, Ny, Nz) overlap-add on x
+    and y: offset o = (ox + 1) * 3 + (oy + 1) of column c lands on column
+    c + (ox, oy) (the transpose of ``_grid_to_windows``)."""
+    sx, sy = spec.s
+    ncx, ncy, _ = spec.bins.n_cells
+    out = out.reshape(ncx, ncy, 9, sx * sy, 3 * params.Nz)
+    acc = None
+    for o in range(9):
+        t = torch.roll(out[:, :, o], (o // 3 - 1, o % 3 - 1), dims=(0, 1))
+        acc = t if acc is None else acc + t
+    acc = acc.reshape(ncx, ncy, sx, sy, 3, params.Nz)
+    grid = acc.permute(4, 0, 2, 1, 3, 5)         # (3, ncx, sx, ncy, sy, Nz)
+    return grid.reshape(3, params.Nx, params.Ny, params.Nz)
+
+
+def spread_moments(f_cells: torch.Tensor, spec: ColFfSpec, params: PSEParams,
+                   factors: ColFactors) -> torch.Tensor:
+    """Plain version of the spread kernel: (C, 9 sx sy, 3 Nz) window moments
+    out[c, n, (k, z)] = sum_p wxy[c, n, p] X[c, (k, z), p].
+
+    X = (prefac f) (x) wz is an f32 product rounded once to the weight dtype,
+    the JAX package's rounding point; the products are summed in f32."""
+    C = spec.bins.n_cells_total
+    cap = spec.bins.cap
+    dtype = _weight_dtype(spec)
+    fp = f_cells.to(torch.float32) * np.float32(params.spread_prefac).item()
+    X = (fp.permute(1, 0, 2)[:, :, None, :] * factors.wz.float()[:, None]
+         ).reshape(C, 3 * params.Nz, cap).to(dtype)
+    return torch.einsum("cnp,cmp->cnm", factors.wxy.float(), X.float())
+
+
+def spread_col(f_cells: torch.Tensor, spec: ColFfSpec, params: PSEParams,
+               factors: ColFactors) -> torch.Tensor:
+    """Plain version: the force-moment grid (3, Nx, Ny, Nz) of the slot
+    forces ``f_cells`` (3, C, cap), whose padded slots are zero."""
+    return _windows_to_grid(spread_moments(f_cells, spec, params, factors),
+                            spec, params)
+
+
+def spread_moments_kernel(f_cells: torch.Tensor, spec: ColFfSpec,
+                          params: PSEParams, factors: ColFactors):
+    """(C, 9 sx sy, 3 Nz) window moments: ``csrc/spread.cu`` on CUDA
+    tensors, the plain ``spread_moments`` on CPU tensors."""
+    if f_cells.device.type == "cpu":
+        return spread_moments(f_cells, spec, params, factors)
+    sx, sy = spec.s
+    C, cap = spec.bins.n_cells_total, spec.bins.cap
+    Nz = params.Nz
+    nn = 9 * sx * sy
+    dtype = _weight_dtype(spec)
+    f = f_cells.to(torch.float32).contiguous()
+    wxy, wz = factors.wxy.contiguous(), factors.wz.contiguous()
+    if (f.shape != (3, C, cap) or wxy.shape != (C, nn, cap)
+            or wz.shape != (C, Nz, cap) or wxy.dtype != dtype
+            or wz.dtype != dtype):
+        raise ValueError("spread_moments_kernel: operand shapes/dtypes do "
+                         "not match the spec")
+    out = torch.empty((C, nn, 3 * Nz), dtype=torch.float32, device=f.device)
+    p = kernels.ptr
+    rc = kernels.library().pse_spread_col(
+        p(f), p(wxy), p(wz), int(dtype == torch.bfloat16), C, nn, Nz, cap,
+        float(np.float32(params.spread_prefac)), p(out), kernels.stream_of(f),
+    )
+    spread_moments_kernel.launches += 1
+    kernels.check("spread_moments_kernel", rc)
+    return out
+
+
+spread_moments_kernel.launches = 0
+
+
+def spread_col_kernel(f_cells: torch.Tensor, spec: ColFfSpec,
+                      params: PSEParams, factors: ColFactors):
+    """(3, Nx, Ny, Nz) force-moment grid: the moments from
+    ``spread_moments_kernel``, then the plain overlap-add (as the JAX
+    package's ``spread_col_pallas`` leaves the fold to XLA)."""
+    return _windows_to_grid(
+        spread_moments_kernel(f_cells, spec, params, factors), spec, params)

@@ -6,8 +6,10 @@ dependencies; the repository's conftest imports jax, so run it there with
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Sizes are small (the banded test config, N = 1080 in L = 24, and N = 5300
-in L = 40); chip_smoke.py holds the kernels at the main path's shapes.
+Sizes are small (the banded test config, N = 1080 in L = 24, N = 5300 in
+L = 40, and the oracle gate's N = 2048 in L = 26.71 with its 27^3 grid and
+3 x 3 far-field columns); chip_smoke.py holds the kernels at the main
+path's shapes.
 """
 
 import numpy as np
@@ -144,9 +146,100 @@ def test_step_on_card_matches_cpu_step(cuda):
                                      bs.cap)).astype(np.float32),
              rng.uniform(-1.2, 1.2, (6, p.Nx, p.Ny, p.Nz // 2 + 1)
                          ).astype(np.float32))
-    _, ic = pi.step(cpu, pi.make_state(pos, device="cpu"), 1.0, 1e-3, 0.3,
-                    uniforms=draws)
-    _, ig = pi.step(gpu, pi.make_state(pos, device="cuda"), 1.0, 1e-3, 0.3,
-                    uniforms=draws)
+    f0 = torch.zeros((n, 3))
+    _, ic = pi.step(cpu, pi.make_state(pos, device="cpu"), f0, 1.0, 1e-3,
+                    0.3, uniforms=draws)
+    _, ig = pi.step(gpu, pi.make_state(pos, device="cuda"), f0, 1.0, 1e-3,
+                    0.3, uniforms=draws)
     assert ig["m_lanczos"] == ic["m_lanczos"]
     assert _rel_max(ig["velocities"].cpu(), ic["velocities"]) < 1e-4
+
+
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-5),
+                                         ("bfloat16", 1e-4)])
+@pytest.mark.parametrize("n,L,tilt", [(5300, 40.0, 0.25),
+                                      (2048, 26.71378026056561, 0.0)])
+def test_spread_kernel_matches_plain_version(cuda, dtype, bound, n, L, tilt):
+    """The moments and the folded grid; X is rounded at the same point in
+    both, so the bf16 bound covers only the order of the f32 sums."""
+    cfg, pos, box = _setup(n, L, tilt)
+    p = cfg.params
+    spec = cfg.colff_spec._replace(weight_dtype=dtype)
+    bins, f = bin_particles(pos, box, spec.bins,
+                            values=torch.randn(pos.shape, device=cuda))
+    fac = cff.build_col_factors(bins, box, spec, p)
+    got = cff.spread_moments_kernel(f, spec, p, fac)
+    want = cff.spread_moments(f, spec, p, fac)
+    assert _rel_max(got, want) < bound
+    assert torch.equal(cff.spread_moments_kernel(f, spec, p, fac), got)
+    assert _rel_max(cff.spread_col_kernel(f, spec, p, fac),
+                    cff.spread_col(f, spec, p, fac)) < bound
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,L,tilt,window", [
+    (1080, 24.0, 0.0, None), (5300, 40.0, 0.3, None), (5300, 40.0, 0.1, 256)])
+def test_two_rhs_and_build_only_banded_kernels(cuda, dtype, n, L, tilt,
+                                               window):
+    """Two right-hand sides against two one-RHS launches (<= 1e-4, the JAX
+    gate's fused bound), at the default and the widest window (the shared
+    partials and rank accumulator are largest there); the build alone
+    writes build_mv's A bit for bit, within 1e-6 (float32) or 2^-8
+    (bfloat16, against the float32 plain build) of max |A| of the plain
+    build."""
+    cfg, pos, box = _setup(n, L, tilt)
+    p = cfg.params
+    bs = cfg.band_spec._replace(block_dtype=dtype)
+    if window is not None:
+        bs = bs._replace(window=window)
+    bins = bin_columns(pos, box, bs.bins)
+    j0, nv, _, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+    f = vec_to_cells(bins, bs.bins, torch.randn(pos.shape, device=cuda))
+    g = vec_to_cells(bins, bs.bins, torch.randn(pos.shape, device=cuda))
+    fg = torch.cat([f, g])
+    args = (bins, tilt, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
+            zsh)
+    blocks2, u2 = bdn.build_mv_banded(*args, fg, p.self_mobility)
+    blocks1, u1 = bdn.build_mv_banded(*args, f, p.self_mobility)
+    assert torch.equal(blocks1, blocks2)
+    m2 = bdn.matvec_banded(blocks1, *args, fg, p.self_mobility)
+    m1 = torch.cat([bdn.matvec_banded(blocks1, *args, f, p.self_mobility),
+                    bdn.matvec_banded(blocks1, *args, g, p.self_mobility)])
+    assert _rel_max(u2[:3], u1) < 1e-4
+    assert _rel_max(m2, m1) < 1e-4
+    A = bdn.build_banded_blocks(*args)
+    assert torch.equal(A, blocks1)
+    plain = bdn.build_banded_blocks_reference(
+        *args[:2], bs._replace(block_dtype="float32"), *args[3:])
+    bound = 1e-6 if dtype == "float32" else 2.0 ** -8
+    for k in range(2):
+        assert _rel_max(A[:, :, k].float(), plain[:, :, k]) < bound
+
+
+@pytest.mark.parametrize("thermal", [True, False])
+def test_with_forces_step_and_mobility_on_card_match_cpu(cuda, thermal):
+    """The step with forces (two-RHS build when thermal) and U = M F,
+    float32 blocks and factors, card vs CPU."""
+    n, L = 1080, 24.0
+    params = make_params(xi=0.5, error=1e-3, L=L)
+    kw = dict(engine="banded", thermal=thermal, block_dtype="float32")
+    gpu = pi.make_config(params, n, ff_weight_dtype="float32", device="cuda",
+                         **kw)
+    cpu = pi.make_config(params, n, device="cpu", **kw)
+    rng = np.random.default_rng(5)
+    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
+    forces = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    bs, p = cpu.band_spec.bins, params
+    draws = (rng.uniform(-1.7, 1.7, (3, bs.n_cells[0] * bs.n_cells[1],
+                                     bs.cap)).astype(np.float32),
+             rng.uniform(-1.2, 1.2, (6, p.Nx, p.Ny, p.Nz // 2 + 1)
+                         ).astype(np.float32)) if thermal else None
+    _, ic = pi.step(cpu, pi.make_state(pos, 2, 0.3, "cpu"), forces, 1.0,
+                    1e-3, 0.4, uniforms=draws)
+    _, ig = pi.step(gpu, pi.make_state(pos, 2, 0.3, "cuda"), forces.cuda(),
+                    1.0, 1e-3, 0.4, uniforms=draws)
+    assert ig["m_lanczos"] == ic["m_lanczos"]
+    assert _rel_max(ig["velocities"].cpu(), ic["velocities"]) < 1e-4
+    uc, _ = pi.mobility(cpu, pos, forces, 0.3)
+    ug, og = pi.mobility(gpu, pos, forces, 0.3)
+    assert int(og) == 0 and _rel_max(ug.cpu(), uc) < 1e-4

@@ -4,7 +4,8 @@ One full thermal, force-free banded step with JAX's own draws injected (the
 psi and wave uniforms ``integrator.step`` draws from fold_in(PRNGKey(
 hash_seed(seed)), step)), bitwise reruns, the Brownian covariance against
 ``pse_tpu``'s mobility, the Simulation loop and checkpoints written by
-``pse_tpu``, and the not-yet-ported paths raising.  CPU only: the port's
+``pse_tpu``, and the not-yet-ported paths raising (the with-forces and
+athermal paths are held to ``pse_tpu`` in test_torch_forces.py).  CPU only: the port's
 kernel wrappers run their plain versions here.
 """
 
@@ -85,8 +86,8 @@ def test_step_matches_jax(tilt, rate, new_tilt, step, m0):
                               device="cpu")
     jnew, jinfo = ji.step(jcfg, js, jnp.zeros((N, 3), jnp.float32), 1.0,
                           1e-3, rate, new_tilt)
-    tnew, tinfo = pi.step(tcfg, ts, 1.0, 1e-3, rate, new_tilt,
-                          uniforms=_jax_draws(jcfg, step))
+    tnew, tinfo = pi.step(tcfg, ts, torch.zeros((N, 3)), 1.0, 1e-3, rate,
+                          new_tilt, uniforms=_jax_draws(jcfg, step))
     assert tinfo["m_lanczos"] == int(jinfo["m_lanczos"])
     assert _rel(tinfo["velocities"].numpy(), jinfo["velocities"]) < 1e-4
     np.testing.assert_allclose(tnew.pos.numpy(), np.asarray(jnew.pos),
@@ -104,11 +105,12 @@ def test_step_reruns_are_bitwise_equal():
     bitwise equal, the next step draws anew."""
     _, tcfg = _configs(seed=9)
     s0 = pi.make_state(_positions(8), step=3, device="cpu")
-    a, ia = pi.step(tcfg, s0, 1.0, 1e-3, 0.2)
-    b, ib = pi.step(tcfg, s0, 1.0, 1e-3, 0.2)
+    f0 = torch.zeros((N, 3))
+    a, ia = pi.step(tcfg, s0, f0, 1.0, 1e-3, 0.2)
+    b, ib = pi.step(tcfg, s0, f0, 1.0, 1e-3, 0.2)
     assert torch.equal(a.pos, b.pos)
     assert torch.equal(ia["velocities"], ib["velocities"])
-    _, ic = pi.step(tcfg, s0._replace(step=4), 1.0, 1e-3, 0.2)
+    _, ic = pi.step(tcfg, s0._replace(step=4), f0, 1.0, 1e-3, 0.2)
     assert not torch.equal(ia["velocities"], ic["velocities"])
 
 
@@ -191,27 +193,15 @@ def test_unported_paths_raise_not_implemented():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             pi.make_config(tp, N, engine=engine, has_forces=False,
                            device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pi.make_config(tp, N, engine="banded", device="cpu")     # forces
-    with pytest.raises(NotImplementedError, match="ROADMAP"):   # athermal
-        pi.make_config(tp, N, engine="banded", thermal=False,
-                       has_forces=False, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):   # halo slabs
+        pi.make_config(tp, N, engine="banded", shard_slabs=2, device="cpu")
     with pytest.raises(NotImplementedError, match="blocked engine"):
         pi.make_config(tp, 64, engine="banded", has_forces=False,
                        device="cpu")                             # too sparse
-    sim = P.Simulation(positions=_positions(1), L=L, dt=1e-3, device="cpu",
-                       force_fn=lambda pos, t: torch.zeros_like(pos))
-    with pytest.raises(NotImplementedError):
-        sim.set_integrator(P.PSEv1(T=1.0), engine="banded", verbose=False)
     sim = P.Simulation(positions=_positions(1), L=L, dt=1e-3, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sim.set_integrator(P.PSEv1(T=1.0, group=np.arange(10)),
                            engine="banded", verbose=False)
-    sim.set_integrator(P.PSEv1(T=1.0), engine="banded", verbose=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.set_params(T=0.0)
-    with pytest.raises(NotImplementedError):
-        pi.mobility(None, None, None)
 
 
 def test_entry_points_default_to_cuda():
