@@ -29,19 +29,21 @@ Phases (each failure makes the script exit non-zero without the result line):
   [profile] torch.profiler over 3 more steps of each main path: device time
             by kernel and the device's idle share;
   [kernels] each kernel against its plain version at the main path's shapes
-            (and the spread at the oracle's), at tilt 0 and 0.3: fill bitwise
-            (value rows too); build_mv and matvec <= 1e-5 (float32 A) and
-            <= 2e-3 (bfloat16 A) against the unrounded float32
-            matvec_banded_reference, two right-hand sides <= 1e-4 against two
-            one-RHS launches; build_banded_blocks bitwise build_mv's A and
-            <= 1e-6 (float32) / 2^-8 (bfloat16) of the float32 plain build;
-            contract <= 1e-5 (float32) and <= 5e-3 (bfloat16); spread
-            <= 1e-5 (float32) and <= 1e-4 (bfloat16) (max |diff| / max
-            |plain|);
+            (and the spread and the contract at the oracle's), at tilt 0 and
+            0.3: fill bitwise (value rows too); build_mv and matvec <= 1e-5
+            (float32 A) and <= 2e-3 (bfloat16 A) against the unrounded
+            float32 matvec_banded_reference, two right-hand sides <= 1e-4
+            against two one-RHS launches; build_banded_blocks bitwise
+            build_mv's A and <= 1e-6 (float32) / 2^-8 (bfloat16) of the
+            float32 plain build; contract <= 1e-5 (float32) and <= 5e-3
+            (bfloat16); spread <= 1e-5 (float32) and <= 1e-4 (bfloat16) (max
+            |diff| / max |plain|); spread and contract reruns bitwise equal;
   [timing]  CUDA-event times of each kernel wrapper and its plain version,
             with the least time the card could take (bytes at 3.35 TB/s,
             operations at the peak rate of their type), and torch.bmm as the
-            spread's library yardstick, printed as one JSON line;
+            library yardstick of the spread (wxy with a pre-built X) and of
+            the contract (the pre-gathered windows with wxy), printed as one
+            JSON line;
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -52,6 +54,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -125,7 +128,12 @@ def phase_build():
     print(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {kernels.BUILD_INFO.get('seconds', 0.0):.1f} s)")
     for line in kernels.BUILD_INFO.get("log", "").splitlines():
-        if line.startswith("==") or "registers" in line or "spill" in line:
+        if "Function properties for" in line:
+            # the kernel's name and template arguments, from the mangled name
+            name = line.split("Function properties for")[-1].strip()
+            print("  " + re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_\d+_\w+?_cu_\w{8}",
+                                "", name)[:48])
+        elif line.startswith("==") or "registers" in line or "spill" in line:
             print("  " + line.strip())
 
 
@@ -460,18 +468,54 @@ def _far_operands(config, pos, tilt, dtype, seed=11):
     return spec, bins, f, cff.build_col_factors(bins, box, spec, p)
 
 
+def _check_rerun(ph, label, got, fn):
+    """A second launch on the same inputs must be bitwise the first."""
+    ph.check(f"{label} rerun (mismatched elements)", int((fn() != got).sum()),
+             0)
+
+
 def _check_spread(ph, results, config, pos, tilt, where):
     from pse_tpu_torch.ops import column_farfield as cff
 
     p = config.params
     for dtype, bound in (("float32", 1e-5), ("bfloat16", 1e-4)):
         spec, _, f, fac = _far_operands(config, pos, tilt, dtype)
-        got = cff.spread_moments_kernel(f, spec, p, fac)
-        want = cff.spread_moments(f, spec, p, fac)
-        r, d = rel_max(got, want)
+
+        def run():
+            return cff.spread_moments_kernel(f, spec, p, fac)
+        got = run()
+        r, d = rel_max(got, cff.spread_moments(f, spec, p, fac))
         ph.check(f"spread {dtype} tilt={tilt} {where}", r, bound)
+        _check_rerun(ph, f"spread {dtype} tilt={tilt} {where}", got, run)
         if dtype == config.colff_spec.weight_dtype and where == "main":
             results["spread_col"]["err"].append(d)
+
+
+def _check_contract(ph, results, config, pos, tilt, where):
+    import torch
+
+    from pse_tpu_torch import cellbins as cb
+    from pse_tpu_torch.box import make_box
+    from pse_tpu_torch.ops import column_farfield as cff
+
+    p = config.params
+    box = make_box(p.L, tilt)
+    ff = cb.bin_particles(pos, box, config.colff_spec.bins)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(11)
+    grid = torch.randn((3, p.Nx, p.Ny, p.Nz), generator=g, device="cuda")
+    for dtype, bound in (("float32", 1e-5), ("bfloat16", 5e-3)):
+        spec = config.colff_spec._replace(weight_dtype=dtype)
+        fac = cff.build_col_factors(ff, box, spec, p)
+
+        def run():
+            return cff.contract_col_kernel(grid, spec, p, fac)
+        got = run()
+        r, d = rel_max(got, cff.contract_col(grid, spec, p, fac))
+        ph.check(f"contract {dtype} tilt={tilt} {where}", r, bound)
+        _check_rerun(ph, f"contract {dtype} tilt={tilt} {where}", got, run)
+        if dtype == config.colff_spec.weight_dtype and where == "main":
+            results["contract_col"]["err"].append(d)
 
 
 def phase_kernels(ph, sim, results):
@@ -482,7 +526,6 @@ def phase_kernels(ph, sim, results):
     from pse_tpu_torch import integrator, make_params
     from pse_tpu_torch.box import make_box
     from pse_tpu_torch.ops import banded_nearfield as bdn
-    from pse_tpu_torch.ops import column_farfield as cff
 
     config = sim.config
     p = config.params
@@ -549,19 +592,7 @@ def phase_kernels(ph, sim, results):
                     float((A.float() - plain.to(A.dtype).float()).abs().max()))
             del blocks, blocks2, A, plain
 
-        ff = cb.bin_particles(pos, box, config.colff_spec.bins)
-        g = torch.Generator(device="cuda")
-        g.manual_seed(11)
-        grid = torch.randn((3, p.Nx, p.Ny, p.Nz), generator=g, device="cuda")
-        for dtype, bound in (("float32", 1e-5), ("bfloat16", 5e-3)):
-            spec = config.colff_spec._replace(weight_dtype=dtype)
-            fac = cff.build_col_factors(ff, box, spec, p)
-            want = cff.contract_col(grid, spec, p, fac)
-            got = cff.contract_col_kernel(grid, spec, p, fac)
-            r, d = rel_max(got, want)
-            ph.check(f"contract {dtype} tilt={tilt}", r, bound)
-            if dtype == config.colff_spec.weight_dtype:
-                results["contract_col"]["err"].append(d)
+        _check_contract(ph, results, config, pos, tilt, "main")
         _check_spread(ph, results, config, pos, tilt, "main")
         torch.cuda.synchronize()
 
@@ -571,6 +602,7 @@ def phase_kernels(ph, sim, results):
                                   engine="banded", device="cuda")
     opos = torch.as_tensor(d["pos"], device="cuda")
     for tilt in (0.0, 0.3):
+        _check_contract(ph, results, ocfg, opos, tilt, "oracle shapes")
         _check_spread(ph, results, ocfg, opos, tilt, "oracle shapes")
 
 
@@ -668,6 +700,15 @@ def phase_timing(sim, results):
         plain_ms=cuda_ms(lambda: cff.contract_col(grid, cs, p, fac), 5))
     bound("contract_col", grid.numel() * 4 + w_bytes + 3 * Cf * cap * 4,
           flops + 2 * 3 * p.Nz * Cf * cap, cs.weight_dtype)
+    # the library yardstick: one batched product of the pre-gathered
+    # windows with wxy, the H = G^T wxy of the plain version
+    vt = cff._grid_to_windows(grid, cs, p, fac.wxy.dtype).transpose(1, 2)
+    results["contract_col"]["library_ms"] = cuda_ms(
+        lambda: torch.bmm(vt, fac.wxy), 20)
+    print(f"  contract: kernel {results['contract_col']['ms']:.4f} ms, "
+          f"torch.bmm ({fac.wxy.dtype} in and out) "
+          f"{results['contract_col']['library_ms']:.4f} ms")
+    del vt
 
     spec, _, fs, sfac = _far_operands(config, pos, tilt, cs.weight_dtype)
     out_bytes = Cf * nn * 3 * p.Nz * 4

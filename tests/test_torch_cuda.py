@@ -12,6 +12,8 @@ L = 40, and the oracle gate's N = 2048 in L = 26.71 with its 27^3 grid and
 path's shapes.
 """
 
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 
@@ -20,7 +22,7 @@ torch = pytest.importorskip("torch")
 from pse_tpu_torch import integrator as pi              # noqa: E402
 from pse_tpu_torch import make_box, make_params         # noqa: E402
 from pse_tpu_torch.cellbins import (                    # noqa: E402
-    bin_columns, bin_particles, fill_cells, fill_cells_reference,
+    BinSpec, bin_columns, bin_particles, fill_cells, fill_cells_reference,
     fill_operands, vec_to_cells)
 from pse_tpu_torch.ops import banded_nearfield as bdn   # noqa: E402
 from pse_tpu_torch.ops import column_farfield as cff    # noqa: E402
@@ -118,8 +120,14 @@ def test_banded_kernels_at_16_rows(cuda):
 
 @pytest.mark.parametrize("dtype,bound", [("float32", 1e-5),
                                          ("bfloat16", 5e-3)])
-def test_contract_kernel_matches_plain_version(cuda, dtype, bound):
-    cfg, pos, box = _setup(5300, 40.0, 0.25)
+@pytest.mark.parametrize("n,L,tilt", [(5300, 40.0, 0.25),
+                                      (2048, 26.71378026056561, 0.0)])
+def test_contract_kernel_matches_plain_version(cuda, dtype, bound, n, L,
+                                               tilt):
+    """At N = 5300 in L = 40 and at the oracle's shapes (NN = 729, cap 312,
+    Nz = 27: no tile multiple, a window that wraps onto itself); reruns
+    are bitwise equal."""
+    cfg, pos, box = _setup(n, L, tilt)
     p = cfg.params
     spec = cfg.colff_spec._replace(weight_dtype=dtype)
     fac = cff.build_col_factors(bin_particles(pos, box, spec.bins), box,
@@ -128,6 +136,7 @@ def test_contract_kernel_matches_plain_version(cuda, dtype, bound):
     got = cff.contract_col_kernel(grid, spec, p, fac)
     want = cff.contract_col(grid, spec, p, fac)
     assert _rel_max(got, want) < bound
+    assert torch.equal(cff.contract_col_kernel(grid, spec, p, fac), got)
 
 
 def test_step_on_card_matches_cpu_step(cuda):
@@ -174,6 +183,50 @@ def test_spread_kernel_matches_plain_version(cuda, dtype, bound, n, L, tilt):
     assert torch.equal(cff.spread_moments_kernel(f, spec, p, fac), got)
     assert _rel_max(cff.spread_col_kernel(f, spec, p, fac),
                     cff.spread_col(f, spec, p, fac)) < bound
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("cap", [1, 15, 16, 17, 248])
+@pytest.mark.parametrize("ncx,ncy,sx,sy,nz", [(3, 4, 3, 2, 20),
+                                              (3, 3, 5, 4, 24),
+                                              (3, 3, 2, 2, 100),
+                                              (3, 3, 1, 2, 300)])
+def test_far_field_kernels_at_ragged_shapes(cuda, dtype, cap, ncx, ncy, sx,
+                                            sy, nz):
+    """Spread and contract on hand-built operands: 3 x 4 columns of
+    (sx, sy) = (3, 2) nodes (NN = 54, Nz = 20); 3 x 3 columns of (5, 4)
+    nodes (NN = 180, Nz = 24: the contract streams wxy instead of keeping
+    it resident, the spread has a ragged fourth row tile); Nz = 100 (two z
+    chunks in the contract, two column tiles in the spread) and Nz = 300
+    (the spread's column tiles start inside a component), at slot counts
+    at and around one 16-deep product step and at the main path's 248
+    (only 16 and 248 take the 16-byte staging).  Held to the plain
+    versions at the kernel bounds (spread 1e-5 / 1e-4, contract 1e-5 /
+    5e-3), reruns bitwise equal.  The grid is positive, so the bf16
+    contract's H rounding (plain version only) cannot be magnified by
+    cancellation."""
+    params = SimpleNamespace(Nx=ncx * sx, Ny=ncy * sy, Nz=nz,
+                             spread_prefac=0.37, quadW=0.81)
+    spec = cff.ColFfSpec(bins=BinSpec(n_cells=(ncx, ncy, 1), cap=cap),
+                         s=(sx, sy), weight_dtype=dtype)
+    C, nn = ncx * ncy, 9 * sx * sy
+    rng = np.random.default_rng(cap)
+    wdt = getattr(torch, dtype)
+
+    def dev(a, dt=torch.float32):
+        return torch.as_tensor(a.astype(np.float32), device=cuda).to(dt)
+
+    fac = cff.ColFactors(wxy=dev(rng.uniform(0, 1, (C, nn, cap)), wdt),
+                         wz=dev(rng.uniform(0, 1, (C, nz, cap)), wdt))
+    f = dev(rng.normal(size=(3, C, cap)))
+    grid = dev(rng.uniform(0, 1, (3, params.Nx, params.Ny, nz)))
+    s_bound, c_bound = (1e-5, 1e-5) if dtype == "float32" else (1e-4, 5e-3)
+    got = cff.spread_moments_kernel(f, spec, params, fac)
+    assert _rel_max(got, cff.spread_moments(f, spec, params, fac)) < s_bound
+    assert torch.equal(cff.spread_moments_kernel(f, spec, params, fac), got)
+    got = cff.contract_col_kernel(grid, spec, params, fac)
+    assert _rel_max(got, cff.contract_col(grid, spec, params, fac)) < c_bound
+    assert torch.equal(cff.contract_col_kernel(grid, spec, params, fac), got)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
