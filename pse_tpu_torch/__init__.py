@@ -19,7 +19,8 @@ from . import shear as shear_function
 from . import integrator
 from .api import PSEv1, Simulation, create_lattice
 from .box import Box, make_box
-from .integrator import State, StepConfig, make_state, state_from_arrays, step
+from .integrator import (State, StepConfig, make_state, mobility,
+                         state_from_arrays, step)
 from .params import PSEParams, make_params
 
 __version__ = "0.1.0"

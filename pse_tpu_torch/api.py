@@ -58,6 +58,19 @@ class PSEv1:
             raise ValueError(
                 "Invalid neighborlist method. Valid options are: cell, tree, stencil."
             )
+        if self.nlist_type.upper() == "TREE":
+            import warnings
+
+            # The reference's tree backend (NeighborListGPUTree) builds a
+            # neighbour list; the banded engine builds none (it bins the
+            # particles into z-sorted columns each step), so the option
+            # is accepted for API parity and changes nothing.
+            warnings.warn(
+                "nlist_type='tree' has no effect on the GPU banded engine, "
+                "which bins particles into z-sorted columns and builds no "
+                "neighbour list (results identical to 'cell')",
+                stacklevel=2,
+            )
 
     def temperature(self, timestep):
         if callable(self.T):
