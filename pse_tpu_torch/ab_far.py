@@ -1,28 +1,42 @@
 #!/usr/bin/env python3
 """A/B timing of the far-field kernels (csrc/spread.cu, csrc/contract.cu)
-on one CUDA device, at chip_smoke.py's main-path shapes.
+and of the banded matvec (csrc/banded_matvec.cu) on one CUDA device, at
+chip_smoke.py's main-path shapes.
 
-    python3 pse_tpu_torch/ab_far.py [--other DIR]
+    python3 pse_tpu_torch/ab_far.py [--other DIR] [--only far|matvec]
 
-Times ``spread_moments_kernel`` and ``contract_col_kernel`` (CUDA events,
-tilt 0.3, the default bfloat16 factors) with this checkout's kernel
-library and, with ``--other``, with a second library built from the
-``pse_tpu_torch/csrc`` of another checkout (e.g. the parent unpacked by
-``git archive`` into the gitignored ``scratch_tree/``), whose C entry points
-take the same arguments.  The two libraries run in alternating rounds in
-the order other, this, this, other, each call timed twice: by CUDA
-events around a loop of wrapper calls (as chip_smoke.py times them) and
-by replaying a CUDA graph of the same calls (the device time alone,
-without the wrapper's host work).  Each library's results are held
-against the plain versions (max |diff| / max |plain|) and against a
-rerun (bitwise).  Also times the library yardsticks, ``torch.bmm`` of wxy
-with a pre-built X (the spread's product) and of the pre-gathered
-windows with wxy (the contract's H).  Prints one JSON line.
+Far field: times ``spread_moments_kernel`` and ``contract_col_kernel``
+(tilt 0.3, the default bfloat16 factors) with this checkout's kernel
+library and, with ``--other``, with the library of another checkout
+(e.g. the parent unpacked by ``git archive`` into the gitignored
+``scratch_tree/``), whose far-field C entry points take the same
+arguments.  Also times the library yardsticks, ``torch.bmm`` of wxy with a
+pre-built X (the spread's product) and of the pre-gathered windows with
+wxy (the contract's H).
+
+Matvec: times ``matvec_banded`` (tilt 0.3, one right-hand side, the
+default bfloat16 blocks) of this checkout and, with ``--other``, the other
+checkout's own ``matvec_banded``, its package imported under another name,
+so that its wrapper and kernel run as they are there.  Both apply the same
+stored A.  Each is timed as the wrapper (with its torch work on the
+kernel's planes) and as the kernel launch alone.  The kernels' raw planes
+and the wrappers' u are compared between the two checkouts (max |diff|,
+bitwise equality) at tilts 0 and 0.3, one and two right-hand sides,
+bfloat16 and float32 blocks.
+
+The two sides run in alternating rounds in the order other, this, this,
+other, each call timed by CUDA events around a loop of calls (as
+chip_smoke.py times them) and by replaying a CUDA graph of the same calls
+(the device time alone, without the host's work).  Each side's results are
+held against the plain versions (max |diff| / max |plain|) and against a
+rerun (bitwise).  Prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import json
 import subprocess
 import sys
@@ -56,43 +70,133 @@ def graph_ms(fn, reps):
     return t0.elapsed_time(t1) / reps
 
 
-def load_library(kernels, csrc: Path):
-    """Build and load the kernel library of another csrc/ directory; the
-    module's own library stays loaded."""
-    first = kernels.library()
-    saved = kernels.CSRC, kernels.SOURCES, kernels.HEADERS
-    try:
-        kernels.CSRC = csrc
-        kernels.SOURCES = tuple(s for s in saved[1] if (csrc / s).exists())
-        kernels.HEADERS = tuple(sorted(p.name for p in csrc.glob("*.cuh")))
-        kernels._lib = None
-        other = kernels.library()
-    finally:
-        kernels.CSRC, kernels.SOURCES, kernels.HEADERS = saved
-        kernels._lib = first
-    return other
+def load_other(root: Path):
+    """Import another checkout's pse_tpu_torch as the package
+    ``pse_tpu_torch_other`` (its kernels build into its own tree)."""
+    pkg = root / "pse_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "pse_tpu_torch_other", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--other", default=None,
-                    help="root of another checkout whose kernels to time")
-    a = ap.parse_args()
-    sys.path[0] = str(ROOT)          # not this script's own directory
+def kernel_launch(bdn, blocks, args, f):
+    """The matvec kernel launch alone (its raw planes) of a checkout's
+    banded_nearfield module; before its own source file the matvec was a
+    mode of csrc/banded.cu."""
+    bins, tilt, bs, cheb, L, cut, dr, j0, nv, zsh = args
+    if hasattr(bdn, "_launch_matvec"):
+        def run():
+            uo, rc = bdn._launch_matvec(blocks, bins, tilt, bs, L, j0, nv,
+                                        zsh, f)
+            return uo, rc
+    else:
+        def run():
+            _, uo, rc = bdn._launch_banded(bdn.MODE_MATVEC, *args, f,
+                                           blocks=blocks)
+            return uo, rc
+
+    def launch():
+        uo, rc = run()
+        if rc:
+            raise RuntimeError(f"matvec launch failed: CUDA error {rc}")
+        return uo
+    return launch
+
+
+def ab_matvec(sides, order, pos, L):
+    """The matvec A/B of main(): timings, the checks, and the two bounds."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("ab_far: no CUDA device", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    from chip_smoke import cuda_ms, make_positions, rel_max
-    from pse_tpu_torch import integrator, kernels, make_params
+    from chip_smoke import HBM_BYTES_PER_S, cuda_ms, rel_max
+    from pse_tpu_torch.ab_build_mv import operands
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+
+    out = {"checks": {}, "between": {}}
+    for tilt in (0.0, TILT):
+        for dtype in ("bfloat16", "float32"):
+            args, f, self_mob = operands(pos, N, L, tilt, dtype=dtype)
+            g = torch.Generator(device="cuda")
+            g.manual_seed(8)
+            f2 = torch.cat([f, torch.randn(f.shape, generator=g,
+                                           device="cuda") * (f != 0)])
+            blocks, _ = bdn.build_mv_banded(*args, f, self_mob)
+            for nrhs, rhs in ((1, f), (2, f2)):
+                key = f"tilt={tilt} {dtype} nrhs={nrhs}"
+                ref = bdn._reference_per_rhs(rhs, lambda fk: (
+                    bdn.matvec_banded_reference(*args[:9], fk, self_mob)))
+                got = {}
+                for k, m in sides.items():
+                    uo = kernel_launch(m, blocks, args, rhs)()
+                    u = m.matvec_banded(blocks, *args, rhs, self_mob)
+                    got[k] = (uo, u)
+                    out["checks"].setdefault(k, {})[key] = {
+                        "rel_max_vs_plain": rel_max(u, ref)[0],
+                        "rerun_bitwise": bool(torch.equal(
+                            m.matvec_banded(blocks, *args, rhs, self_mob),
+                            u))}
+                if "other" in got:
+                    (uo_a, u_a), (uo_b, u_b) = got["this"], got["other"]
+                    out["between"][key] = {
+                        "planes_max_abs_diff": rel_max(uo_a, uo_b)[1],
+                        "planes_bitwise": bool(torch.equal(uo_a, uo_b)),
+                        "u_max_abs_diff": rel_max(u_a, u_b)[1],
+                        "u_rel_max": rel_max(u_a, u_b)[0],
+                        "u_bitwise": bool(torch.equal(u_a, u_b))}
+            if tilt == TILT and dtype == "bfloat16":
+                timed = (args, f, self_mob, blocks)
+            else:
+                del blocks
+
+    args, f, self_mob, blocks = timed
+    bs = args[2]
+    times = {k: {"wrapper_events": [], "wrapper_graph": [],
+                 "kernel_graph": []} for k in sides}
+    for _ in range(ROUNDS):
+        for k in order:
+            m = sides[k]
+            wrapper = (lambda m=m: m.matvec_banded(blocks, *args, f,
+                                                   self_mob))
+            times[k]["wrapper_events"].append(cuda_ms(wrapper, REPS))
+            times[k]["wrapper_graph"].append(graph_ms(wrapper, REPS))
+            times[k]["kernel_graph"].append(
+                graph_ms(kernel_launch(m, blocks, args, f), REPS))
+    C, S, R, W = (bs.bins.n_cells_total, bs.bins.cap, bs.rows, bs.window)
+    T = S // R
+    row_bytes = 2 * 5 * W * blocks.element_size()     # both planes of a row
+    nv = args[8].long()
+    live_rows = int(((nv + R - 1) // R * R).sum())
+    pairs = int((blocks[:, :, 0] != 0).sum())
+    # besides A: slot coordinates and f read, u written, j0 + zsh tables
+    other_bytes = 4 * C * S * 4 + 2 * 5 * C * T * 4 + 2 * 3 * C * S * 4
+    ops = 40 * pairs / 67e12
+    bound = {k: 1e3 * max((a + other_bytes) / HBM_BYTES_PER_S, ops)
+             for k, a in (("full_A", C * S * row_bytes),
+                          ("nonempty_tiles", live_rows * row_bytes))}
+    out.update({
+        "shapes": {"C": C, "S": S, "R": R, "W": W, "T": T,
+                   "block_dtype": bs.block_dtype, "tilt": TILT, "nrhs": 1,
+                   "live_tiles": live_rows // R, "all_tiles": C * T},
+        "ms": times,
+        "median_ms": {k: {n: float(np.median(t)) for n, t in per.items()}
+                      for k, per in times.items()},
+        "bound_ms": bound})
+    return out
+
+
+def ab_far_field(libs, order, pos, L):
+    """The far-field A/B of main(): timings, checks and yardsticks."""
+    import torch
+
+    from chip_smoke import cuda_ms, rel_max
     from pse_tpu_torch import cellbins as cb
+    from pse_tpu_torch import integrator, kernels, make_params
     from pse_tpu_torch.box import make_box
     from pse_tpu_torch.ops import column_farfield as cff
 
-    pos, L = make_positions(N, PHI, seed=0)
-    pos = torch.as_tensor(pos, device="cuda")
     p = make_params(xi=XI, error=ERROR, L=L)
     cs = integrator.make_config(p, N, engine="banded", device="cuda"
                                 ).colff_spec
@@ -104,13 +208,6 @@ def main() -> int:
         values=torch.randn(pos.shape, generator=g, device="cuda"))
     fac = cff.build_col_factors(bins, box, cs, p)
     grid = torch.randn((3, p.Nx, p.Ny, p.Nz), generator=g, device="cuda")
-
-    libs = {"this": kernels.library()}
-    order = ["this", "this"]
-    if a.other:
-        libs["other"] = load_library(
-            kernels, Path(a.other).resolve() / "pse_tpu_torch" / "csrc")
-        order = ["other", "this", "this", "other"]
     calls = {
         "spread": lambda: cff.spread_moments_kernel(f, cs, p, fac),
         "contract": lambda: cff.contract_col_kernel(grid, cs, p, fac),
@@ -143,11 +240,7 @@ def main() -> int:
     vt = cff._grid_to_windows(grid, cs, p, fac.wxy.dtype).transpose(1, 2)
     library = {"spread_bmm": cuda_ms(lambda: torch.bmm(fac.wxy, Xt), REPS),
                "contract_bmm": cuda_ms(lambda: torch.bmm(vt, fac.wxy), REPS)}
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True).stdout.strip()
-    print(json.dumps({
-        "other": a.other, "order": order, "rounds": ROUNDS, "reps": REPS,
+    return {
         "shapes": {"C": C, "NN": fac.wxy.shape[1], "Nz": p.Nz, "cap": cap,
                    "dtype": str(fac.wxy.dtype)},
         "ms": times, "device_ms": device,
@@ -156,7 +249,48 @@ def main() -> int:
         "median_device_ms": {k: {n: float(np.median(t))
                                  for n, t in per.items()}
                              for k, per in device.items()},
-        "checks": checks, "library_ms": library, "card": card}))
+        "checks": checks, "library_ms": library}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--other", default=None,
+                    help="root of another checkout whose kernels to time")
+    ap.add_argument("--only", choices=("far", "matvec"), default=None)
+    a = ap.parse_args()
+    sys.path[0] = str(ROOT)          # not this script's own directory
+    import torch
+
+    if not torch.cuda.is_available():
+        print("ab_far: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from chip_smoke import make_positions
+    from pse_tpu_torch import kernels
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+
+    pos, L = make_positions(N, PHI, seed=0)
+    pos = torch.as_tensor(pos, device="cuda")
+    libs = {"this": kernels.library()}
+    sides = {"this": bdn}
+    order = ["this", "this"]
+    if a.other:
+        other = load_other(Path(a.other).resolve())
+        libs["other"] = other.kernels.library()
+        sides["other"] = importlib.import_module(
+            "pse_tpu_torch_other.ops.banded_nearfield")
+        order = ["other", "this", "this", "other"]
+    result = {"other": a.other, "order": order, "rounds": ROUNDS,
+              "reps": REPS}
+    if a.only != "matvec":
+        result["far"] = ab_far_field(libs, order, pos, L)
+    if a.only != "far":
+        result["matvec"] = ab_matvec(sides, order, pos, L)
+    result["card"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    print(json.dumps(result))
     return 0
 
 

@@ -1,19 +1,17 @@
-// Banded near-field mobility: the pair-coefficient build (alone, or fused
-// with the first matvec) and the matvec that streams the stored coefficients
-// back, for one or two right-hand sides.
+// Banded near-field mobility: the pair-coefficient build, alone or fused
+// with the first matvec for one or two right-hand sides (the matvec that
+// streams the stored coefficients back is banded_matvec.cu).
 //
-// Replaces three Pallas kernels of pse_tpu/ops/banded_nearfield.py:
+// Replaces two Pallas kernels of pse_tpu/ops/banded_nearfield.py:
 //   * `_build_mv_kernel` (:1472, launched by `build_mv_banded`, :1693): build
 //     A = (imrr, bco/d^2) over the half stencil and apply it at once;
-//   * `_matvec_kernel` (:1147, launched by `matvec_banded`, :1392): u = M_real f
-//     from one read of A, forward and transposed;
 //   * `_build_kernel` (:733, launched by `build_banded_blocks`, :894): the
 //     build alone (MODE_BUILD here, no right-hand side; the TPU kernel's
 //     second output, the prefolded coordinates pos_cyc, feeds only its MXU
 //     matvec and has no counterpart).
-// The matvecs compute what `matvec_banded_reference` computes (that module's
-// plain version), with A rounded to the block dtype before it is applied, in
-// the build and in every later matvec alike, so Lanczos sees one operator.
+// The fused matvec computes what `matvec_banded_reference` computes (that
+// module's plain version), with A rounded to the block dtype before it is
+// applied, as every later matvec applies it, so Lanczos sees one operator.
 // The build writes the same A in every mode (its plain version is
 // `build_banded_blocks_reference`).  With NRHS = 2 (f (6, C, S), the forces
 // and the first Lanczos vector of a with-forces step) each A element is
@@ -40,8 +38,8 @@
 //     columns (banded_nearfield._finish_u).
 //
 // What bounds it on the H100: at bench scale (C = 216, S = 576, W = 128,
-// bf16) the matvec must read A, 318.5 MB, >= ~95 us at 3.35 TB/s; the build
-// writes the same bytes (the build alone moves nothing else of size).  The pair arithmetic (~80 M pairs, ~40 flops each
+// bf16) the build writes A, 318.5 MB, >= ~95 us at 3.35 TB/s (the build
+// alone moves nothing else of size).  The pair arithmetic (~80 M pairs, ~40 flops each
 // forward + transposed, plus a degree-8 Clenshaw pair in the build) is of
 // the same order on the CUDA cores.
 //
@@ -65,9 +63,9 @@ constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_RPW = 4;  // rows per warp: R <= 32
 
-// MODE_MATVEC reads A, MODE_BUILD_MV builds A and applies it, MODE_BUILD
-// only builds it (NRHS = 0, no f, no uo)
-constexpr int MODE_MATVEC = 0, MODE_BUILD_MV = 1, MODE_BUILD = 2;
+// MODE_BUILD_MV builds A and applies it, MODE_BUILD only builds it (NRHS =
+// 0, no f, no uo); mode 0, the matvec, is banded_matvec.cu
+constexpr int MODE_BUILD_MV = 1, MODE_BUILD = 2;
 
 // (0,0) then the positive half stencil (banded_nearfield.full_xy_offsets)
 __constant__ int OX[N_HALF] = {0, 0, 1, 1, 1};
@@ -108,7 +106,6 @@ __device__ __forceinline__ float clenshaw(const float* c_lo, const float* c_hi,
 
 template <int MODE, int NRHS, typename AT>
 __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
-  constexpr bool BUILD = MODE != MODE_MATVEC;
   constexpr int NR = NRHS > 0 ? NRHS : 1;  // register array extent
   constexpr int NF = 3 * NRHS;             // right-hand-side rows
   extern __shared__ float smem[];
@@ -148,8 +145,7 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
     for (int k = 0; k < NF; ++k) own[(4 + k) * S + s] = b.f[k * CS + o];
   }
   for (int s = tid; s < NF * SW; s += THREADS) acc[s] = 0.f;
-  if (BUILD)
-    for (int s = tid; s < 4 + 4 * b.n_coef; s += THREADS) cf[s] = b.cheb[s];
+  for (int s = tid; s < 4 + 4 * b.n_coef; s += THREADS) cf[s] = b.cheb[s];
   __syncthreads();
 
   AT* A = reinterpret_cast<AT*>(b.A);
@@ -206,7 +202,7 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
         const float dx = xi[q] - xw, dy = yi[q] - yw, dz = zi[q] - zw;
         const long long ai = (long long)i * a_row + (long long)h * W + w;
         float F1, Bq;
-        if (BUILD) {
+        {
           const float d2 = __fadd_rn(
               __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
               __fmul_rn(dz, dz));
@@ -226,9 +222,6 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
           A[a_bq + ai] = s2;
           F1 = to_f32(s1);
           Bq = to_f32(s2);
-        } else {
-          F1 = to_f32(A[a_im + ai]);
-          Bq = to_f32(A[a_bq + ai]);
         }
 #pragma unroll
         for (int r = 0; r < NRHS; ++r) {
@@ -309,8 +302,7 @@ cudaError_t launch(const Band& b, cudaStream_t stream) {
   constexpr int NF = 3 * NRHS;
   const size_t smem =
       sizeof(float) * ((4 + NF) * (size_t)b.S + NF * (size_t)(b.S + b.W) +
-                       (size_t)WARPS * NF * b.W +
-                       (MODE != MODE_MATVEC ? 4 + 4 * b.n_coef : 0));
+                       (size_t)WARPS * NF * b.W + 4 + 4 * (size_t)b.n_coef);
   auto kernel = banded_kernel<MODE, NRHS, AT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -324,12 +316,8 @@ cudaError_t dispatch(int mode, int nrhs, const Band& b, cudaStream_t stream) {
   if (mode == MODE_BUILD)
     return nrhs == 0 ? launch<MODE_BUILD, 0, AT>(b, stream)
                      : cudaErrorInvalidValue;
-  if (nrhs == 1)
-    return mode == MODE_BUILD_MV ? launch<MODE_BUILD_MV, 1, AT>(b, stream)
-                                 : launch<MODE_MATVEC, 1, AT>(b, stream);
-  if (nrhs == 2)
-    return mode == MODE_BUILD_MV ? launch<MODE_BUILD_MV, 2, AT>(b, stream)
-                                 : launch<MODE_MATVEC, 2, AT>(b, stream);
+  if (nrhs == 1) return launch<MODE_BUILD_MV, 1, AT>(b, stream);
+  if (nrhs == 2) return launch<MODE_BUILD_MV, 2, AT>(b, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -343,7 +331,7 @@ extern "C" int pse_banded(int mode, int nrhs, const float* px, const float* py,
                           float Lx, float Ly, float Lz, float tilt, int a_bf16,
                           void* A, float* uo, cudaStream_t stream) {
   if (R % WARPS != 0 || R > WARPS * MAX_RPW || S % R != 0 || W % 32 != 0 ||
-      mode < MODE_MATVEC || mode > MODE_BUILD)
+      mode < MODE_BUILD_MV || mode > MODE_BUILD)
     return (int)cudaErrorInvalidValue;
   Band b{px,  py,   pz,   mask, f,   j0,  zsh, n_valid, cheb, n_coef, mid,
          cut2, dr2, ncx, ncy, S,   R,   W,   S / R,   Lx,   Ly,     Lz,

@@ -11,10 +11,11 @@ block dtype (1, C, 2, S, 5W); the mirror offsets are applied as transposes,
 and the dyadic d d^T part is rebuilt from f32 coordinates.
 
 Host side: ``make_band_spec``, ``full_xy_offsets``, ``compute_windows``,
-``_finish_u``.  The kernels (``csrc/banded.cu``) are wrapped by
-``build_mv_banded`` (build A and apply it to the first one or two
-right-hand sides), ``matvec_banded`` (apply the stored A to one or two) and
-``build_banded_blocks`` (build A alone).  On CPU tensors the matvec wrappers
+``_finish_u``.  The kernels are wrapped by ``build_mv_banded`` (build A and
+apply it to the first one or two right-hand sides, ``csrc/banded.cu``),
+``matvec_banded`` (apply the stored A to one or two,
+``csrc/banded_matvec.cu``) and ``build_banded_blocks`` (build A alone,
+``csrc/banded.cu``).  On CPU tensors the matvec wrappers
 run ``matvec_banded_reference``, the plain version: all 9 offsets, windows
 gathered, pair functions rebuilt per call, unrounded float32; the build runs
 ``build_banded_blocks_reference``.
@@ -287,16 +288,15 @@ def _cheb_operand(cheb: ChebPair, device: str) -> torch.Tensor:
     return device_coeffs(cheb, device)
 
 
-# csrc/banded.cu modes
-MODE_MATVEC, MODE_BUILD_MV, MODE_BUILD = 0, 1, 2
+# csrc/banded.cu modes (mode 0, the matvec, is csrc/banded_matvec.cu)
+MODE_BUILD_MV, MODE_BUILD = 1, 2
 
 
-def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
-                   cheb: ChebPair, L, ewald_cut, ewald_dr, j0, n_valid, zsh,
-                   f_cells=None, blocks=None):
-    """One launch of csrc/banded.cu; returns (blocks, uo (C, 9, 3 nrhs, S)
-    or None, rc).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None in
-    MODE_BUILD."""
+def _band_operands(bins: CellBins, spec: BandSpec, j0, n_valid, zsh,
+                   f_cells):
+    """The banded kernels' common operands, checked and laid out: (coords
+    [px, py, pz, mask], f or None, nrhs, j0 (5, C, T), zsh (5, C, T),
+    n_valid).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None."""
     if tuple(spec.offsets[:N_HALF]) != full_xy_offsets()[:N_HALF]:
         raise ValueError("banded kernels assume full_xy_offsets() order")
     ncx, ncy, _ = spec.bins.n_cells
@@ -305,11 +305,6 @@ def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
     if R % 8 or R > 32 or S % R or W % 64 or W > 256:
         raise ValueError(f"banded kernels take R in 8..32 (multiple of 8) "
                          f"dividing S and W in 64..256: R={R} S={S} W={W}")
-    dev = bins.px.device
-    a_dtype = getattr(torch, spec.block_dtype)
-    if (f_cells is None) != (mode == MODE_BUILD):
-        raise ValueError("banded kernels take right-hand sides unless they "
-                         "only build")
     f, nrhs = None, 0
     if f_cells is not None:
         nrhs = f_cells.shape[0] // 3
@@ -324,12 +319,25 @@ def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
     nv = n_valid.to(torch.int32).contiguous()
     if j0h.shape != (N_HALF, C, T) or zsh.shape != (N_HALF, C, T):
         raise ValueError("banded kernels take (>=5, C, T) window tables")
-    if mode != MODE_MATVEC:
-        blocks = torch.empty((1, C, 2, S, N_HALF * W), dtype=a_dtype,
-                             device=dev)
-    elif (blocks.shape != (1, C, 2, S, N_HALF * W) or blocks.dtype != a_dtype
-          or not blocks.is_contiguous()):
-        raise ValueError("matvec_banded: blocks do not match the spec")
+    return coords, f, nrhs, j0h, zsh, nv
+
+
+def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
+                   cheb: ChebPair, L, ewald_cut, ewald_dr, j0, n_valid, zsh,
+                   f_cells=None):
+    """One launch of csrc/banded.cu; returns (blocks, uo (C, 9, 3 nrhs, S)
+    or None, rc).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None in
+    MODE_BUILD."""
+    if (f_cells is None) != (mode == MODE_BUILD):
+        raise ValueError("banded kernels take right-hand sides unless they "
+                         "only build")
+    coords, f, nrhs, j0h, zsh, nv = _band_operands(bins, spec, j0, n_valid,
+                                                   zsh, f_cells)
+    ncx, ncy, _ = spec.bins.n_cells
+    C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
+    dev = bins.px.device
+    a_dtype = getattr(torch, spec.block_dtype)
+    blocks = torch.empty((1, C, 2, S, N_HALF * W), dtype=a_dtype, device=dev)
     cheb_dev = _cheb_operand(cheb, str(dev))
     uo = (None if nrhs == 0 else
           torch.empty((C, 9, 3 * nrhs, S), dtype=torch.float32, device=dev))
@@ -345,6 +353,31 @@ def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
         kernels.stream_of(coords[0]),
     )
     return blocks, uo, rc
+
+
+def _launch_matvec(blocks, bins: CellBins, tilt_xy, spec: BandSpec, L, j0,
+                   n_valid, zsh, f_cells):
+    """One launch of csrc/banded_matvec.cu on the stored ``blocks``;
+    returns (uo (C, 9, 3 nrhs, S), rc)."""
+    coords, f, nrhs, j0h, zsh, nv = _band_operands(bins, spec, j0, n_valid,
+                                                   zsh, f_cells)
+    ncx, ncy, _ = spec.bins.n_cells
+    C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
+    a_dtype = getattr(torch, spec.block_dtype)
+    if (blocks.shape != (1, C, 2, S, N_HALF * W) or blocks.dtype != a_dtype
+            or not blocks.is_contiguous()):
+        raise ValueError("matvec_banded: blocks do not match the spec")
+    uo = torch.empty((C, 9, 3 * nrhs, S), dtype=torch.float32,
+                     device=bins.px.device)
+    Lf = [float(np.float32(x)) for x in L]
+    p = kernels.ptr
+    rc = kernels.library().pse_banded_matvec(
+        nrhs, *(p(t) for t in coords[:3]), p(f), p(j0h), p(zsh), p(nv),
+        ncx, ncy, S, R, W, *Lf, float(np.float32(tilt_xy)),
+        int(a_dtype == torch.bfloat16), p(blocks), p(uo),
+        kernels.stream_of(coords[0]),
+    )
+    return uo, rc
 
 
 def _fold_planes(uo):
@@ -401,9 +434,8 @@ def matvec_banded(blocks, bins: CellBins, tilt_xy, spec: BandSpec,
             f_cells, lambda f: matvec_banded_reference(
                 bins, tilt_xy, spec, cheb, L, ewald_cut, ewald_dr, j0,
                 n_valid, f, self_mobility))
-    _, uo, rc = _launch_banded(MODE_MATVEC, bins, tilt_xy, spec, cheb, L,
-                               ewald_cut, ewald_dr, j0, n_valid, zsh, f_cells,
-                               blocks=blocks)
+    uo, rc = _launch_matvec(blocks, bins, tilt_xy, spec, L, j0, n_valid, zsh,
+                            f_cells)
     matvec_banded.launches += 1
     kernels.check("matvec_banded", rc)
     return _finish_u(_fold_planes(uo), spec, f_cells, self_mobility)
