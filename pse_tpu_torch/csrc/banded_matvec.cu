@@ -3,22 +3,40 @@
 //
 // Replaces `_matvec_kernel` of pse_tpu/ops/banded_nearfield.py (:1147,
 // launched by `matvec_banded`, :1392).  Semantics are banded.cu's (see the
-// notes there): one block per (column c, stored offset h), the forward
-// product to plane h of uo (C, 9, 3 NRHS, S), the transposed one (h >= 1)
-// summed by cyclic rank and folded to slots in plane 4 + h.
+// notes there): one block per (column c, stored offset h); the window of
+// tile t is the neighbour column's cyclic ranks j0 + w, w < W, its z
+// shifted by the tile's zsh; the forward product u_i += F1 f_j + Bq d (d .
+// f_j) goes to plane h of uo (C, 9, 3 NRHS, S); for h >= 1 the transposed
+// product u_j += F1 f_i + Bq d (d . f_i) is summed by cyclic rank, folded to
+// slots and written to plane 4 + h.  d is rebuilt from the float32 slot
+// coordinates exactly as the build computes it.
 //
-// This version is banded.cu's matvec mode with one change: the tiles past
-// ceil(n_valid[c] / R) are skipped.  Their rows are unoccupied, so their A
-// rows and f rows are zero and every term they would add is an exact zero;
-// their forward rows are written as zeros.
+// What bounds it on the H100: A.  At bench scale (C = 216, S = 576, R = 32,
+// W = 128, bf16) A is 318.5 MB, >= 95 us at 3.35 TB/s; the pair arithmetic
+// (~25 float32 instructions per stored pair and right-hand side, forward
+// and transposed) is of the same order on the CUDA cores.  The design:
+//   * tiles past ceil(n_valid[c] / R) hold no occupied row, so their A and
+//     f rows are zero: they are skipped (no A read, no arithmetic) and their
+//     forward rows written as zeros (~17 % of A at bench scale);
+//   * a thread owns LPT = 8 window lanes of one tile for all R rows: one
+//     16-byte load per A plane and row (two at float32), RG rows loaded
+//     before any is used; the lanes' window coordinates and f sit in
+//     registers, so the transposed sums stay in registers over the tile;
+//   * G = W / 8 (rounded up to a power of two) threads cover a tile's
+//     lanes and THREADS / G tiles run at once; the forward row sums are a
+//     fixed-order butterfly over the G threads;
+//   * the block stages its own column (x, y, z, f) and the neighbour
+//     window by rank (S + W ranks, the wrap's z + Lz applied) in shared
+//     memory once; after each pass of tiles the tiles' transposed partials
+//     are added into the rank accumulator in tile order by one thread per
+//     rank.  No float atomics: reruns are bitwise equal.
 #include "common.cuh"
 
 namespace {
 
 constexpr int N_HALF = 5;
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_RPW = 4;  // rows per warp: R <= 32
+constexpr int THREADS = 256;
+constexpr int LPT = 8;  // window lanes per thread
 
 __constant__ int OX[N_HALF] = {0, 0, 1, 1, 1};
 __constant__ int OY[N_HALF] = {0, 1, -1, 0, 1};
@@ -29,23 +47,65 @@ struct MV {
   const int* j0;              // (5, C, T) window start ranks
   const float* zsh;           // (5, C, T) window z image shifts
   const int* n_valid;         // (C,) occupied slots per column
-  int ncx, ncy, S, R, W, T;
+  int ncx, ncy, S, R, W, T, G;
   float Lx, Ly, Lz, tilt;
   const void* A;  // (C, 2, S, 5W) block dtype: (imrr, bco/d^2)
   float* uo;      // (C, 9, 3 NRHS, S)
 };
 
-template <int NRHS, typename AT>
-__global__ void __launch_bounds__(THREADS) matvec_kernel(MV b) {
+// LPT consecutive coefficients of one A row (16-byte aligned)
+template <typename AT>
+struct Coef8;
+
+template <>
+struct Coef8<__nv_bfloat16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void zero() { v = make_uint4(0u, 0u, 0u, 0u); }
+  __device__ __forceinline__ float operator[](int l) const {
+    const unsigned w = l < 2 ? v.x : (l < 4 ? v.y : (l < 6 ? v.z : v.w));
+    return __uint_as_float((l & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+template <>
+struct Coef8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldcs(reinterpret_cast<const float4*>(p));
+    b = __ldcs(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void zero() {
+    a = make_float4(0.f, 0.f, 0.f, 0.f);
+    b = a;
+  }
+  __device__ __forceinline__ float operator[](int l) const {
+    const float4& q = l < 4 ? a : b;
+    const int m = l & 3;
+    return m == 0 ? q.x : (m == 1 ? q.y : (m == 2 ? q.z : q.w));
+  }
+};
+
+// Shared memory floats: own (x, y, z, 0) and NRHS (f, 0) rows as float4,
+// the window by rank, the rank accumulator, the tiles' partials, and the
+// per-tile j0 and zsh.
+__host__ __device__ inline size_t smem_floats(int nrhs, int S, int W, int T) {
+  const int nf = 3 * nrhs;
+  return 4 * (size_t)(1 + nrhs) * S + (size_t)(3 + 2 * nf) * (S + W) +
+         (size_t)nf * THREADS * LPT + 2 * (size_t)T;
+}
+
+template <int NRHS, typename AT, bool TR>
+__device__ __forceinline__ void column_block(const MV& b, float* smem) {
   constexpr int NF = 3 * NRHS;
-  extern __shared__ float smem[];
-  const int S = b.S, W = b.W, R = b.R;
-  const int T = b.T;
+  constexpr int RG = sizeof(AT) == 2 ? 4 : 2;  // rows per load group
+  const int S = b.S, W = b.W, R = b.R, T = b.T, G = b.G;
+  const int SW = S + W, P = THREADS / G, GL = G * LPT;
   const int C = b.ncx * b.ncy;
   const long long CS = (long long)C * S;
-  const int c = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rpw = R / WARPS;
+  const int c = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
 
   const int cx = c / b.ncy, cy = c % b.ncy;
   const int ox = OX[h], oy = OY[h];
@@ -57,136 +117,161 @@ __global__ void __launch_bounds__(THREADS) matvec_kernel(MV b) {
   const float wy = (cy + oy >= b.ncy) ? 1.f : ((cy + oy < 0) ? -1.f : 0.f);
   const float sy = wy * b.Ly;
   const float sx = __fadd_rn(wx * b.Lx, __fmul_rn(b.tilt, sy));
-  const bool transposed = h > 0;
 
-  float* own = smem;                // (3 + NF) x S: x, y, z, f rows
-  float* acc = own + (3 + NF) * S;  // NF x (S + W): transposed, by rank
-  float* part = acc + NF * (S + W);  // WARPS x NF x W: per-warp partials
-  const int SW = S + W;
+  float4* ownp = reinterpret_cast<float4*>(smem);        // S
+  float4* ownf = ownp + S;                                // NRHS x S
+  float* win = reinterpret_cast<float*>(ownf + NRHS * S);  // (3 + NF) x SW
+  float* acc = win + (3 + NF) * SW;                       // NF x SW
+  float* part = acc + NF * SW;                            // P x NF x GL
+  int* tj0 = reinterpret_cast<int*>(part + NF * THREADS * LPT);  // T
+  float* tzs = reinterpret_cast<float*>(tj0 + T);                // T
 
   for (int s = tid; s < S; s += THREADS) {
     const long long o = (long long)c * S + s;
-    own[s] = b.px[o];
-    own[S + s] = b.py[o];
-    own[2 * S + s] = b.pz[o];
+    ownp[s] = make_float4(b.px[o], b.py[o], b.pz[o], 0.f);
 #pragma unroll
-    for (int k = 0; k < NF; ++k) own[(3 + k) * S + s] = b.f[k * CS + o];
+    for (int r = 0; r < NRHS; ++r)
+      ownf[r * S + s] = make_float4(b.f[3 * r * CS + o],
+                                    b.f[(3 * r + 1) * CS + o],
+                                    b.f[(3 * r + 2) * CS + o], 0.f);
   }
-  for (int s = tid; s < NF * SW; s += THREADS) acc[s] = 0.f;
-  // forward rows of the skipped tiles
+  // rank q < nv is slot q; rank q >= nv is slot q - nv one period up
+  for (int q = tid; q < SW; q += THREADS) {
+    const bool wrap = q >= nv;
+    const int j = wrap ? q - nv : q;
+    const long long o = (long long)nbr * S + min(j, S - 1);
+    win[q] = b.px[o] + sx;
+    win[SW + q] = b.py[o] + sy;
+    win[2 * SW + q] = b.pz[o] + (wrap ? b.Lz : 0.f);
+#pragma unroll
+    for (int k = 0; k < NF; ++k) win[(3 + k) * SW + q] = b.f[k * CS + o];
+  }
+  for (int t = tid; t < T; t += THREADS) {
+    const long long wt = ((long long)h * C + c) * T + t;
+    tj0[t] = b.j0[wt];
+    tzs[t] = b.zsh[wt];
+  }
+  if (TR)
+    for (int s = tid; s < NF * SW; s += THREADS) acc[s] = 0.f;
   float* fwd = b.uo + ((long long)c * 9 + h) * NF * S;
   for (int s = Tv * R + tid; s < S; s += THREADS)
 #pragma unroll
     for (int k = 0; k < NF; ++k) fwd[k * S + s] = 0.f;
   __syncthreads();
 
+  const int p = tid / G, g = tid % G, w0 = g * LPT;
+  const bool lanes = w0 < W;  // W = 192 leaves a quarter of the group idle
+  const unsigned gmask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((tid & 31) & ~(G - 1));
   const AT* A = reinterpret_cast<const AT*>(b.A);
   const long long a_row = (long long)N_HALF * W;
-  const long long a_im = (long long)c * 2 * S * a_row;  // A[c, 0]
-  const long long a_bq = a_im + (long long)S * a_row;   // A[c, 1]
-  float* wpart = part + warp * NF * W;
 
-  for (int t = 0; t < Tv; ++t) {
-    const long long wt = ((long long)h * C + c) * T + t;
-    const int j0 = b.j0[wt];
-    const float zs = b.zsh[wt];
-
-    float xi[MAX_RPW], yi[MAX_RPW], zi[MAX_RPW];
-    float fi[NRHS][3][MAX_RPW], u[NRHS][3][MAX_RPW];
+  for (int t0 = 0; t0 < Tv; t0 += P) {
+    const int t = t0 + p;
+    if (t < Tv) {  // the same for the G threads of a tile
+      const int j0 = tj0[t];
+      const float zs = tzs[t];
+      float xw[LPT], yw[LPT], zw[LPT], fw[NF][LPT], tp[NF][LPT];
 #pragma unroll
-    for (int q = 0; q < MAX_RPW; ++q) {
-      const int i = q < rpw ? t * R + warp + WARPS * q : 0;
-      xi[q] = own[i];
-      yi[q] = own[S + i];
-      zi[q] = own[2 * S + i];
+      for (int l = 0; l < LPT; ++l) {
+        const int q = min(j0 + w0 + l, SW - 1);
+        xw[l] = win[q];
+        yw[l] = win[SW + q];
+        zw[l] = win[2 * SW + q] - zs;
 #pragma unroll
-      for (int r = 0; r < NRHS; ++r)
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          fi[r][k][q] = own[(3 + 3 * r + k) * S + i];
-          u[r][k][q] = 0.f;
+        for (int k = 0; k < NF; ++k) {
+          fw[k][l] = win[(3 + k) * SW + q];
+          tp[k][l] = 0.f;
         }
-    }
-
-    for (int w = lane; w < W; w += 32) {
-      const int rank = j0 + w;
-      const bool wrap = rank >= nv;
-      const int j = wrap ? rank - nv : rank;
-      const long long o = (long long)nbr * S + min(j, S - 1);
-      const float xw = b.px[o] + sx;
-      const float yw = b.py[o] + sy;
-      const float zw = (b.pz[o] + (wrap ? b.Lz : 0.f)) - zs;
-      float fw[NRHS][3], tp[NRHS][3];
+      }
+      const AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
+                       (long long)h * W + w0;
+      const AT* a_bq = a_im + (long long)S * a_row;
+      for (int i0 = 0; i0 < R; i0 += RG) {
+        Coef8<AT> im[RG], bq[RG];
 #pragma unroll
-      for (int r = 0; r < NRHS; ++r)
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          fw[r][k] = b.f[(3 * r + k) * CS + o];
-          tp[r][k] = 0.f;
-        }
-#pragma unroll
-      for (int q = 0; q < MAX_RPW; ++q) {
-        if (q >= rpw) break;
-        const int i = t * R + warp + WARPS * q;
-        const float dx = xi[q] - xw, dy = yi[q] - yw, dz = zi[q] - zw;
-        const long long ai = (long long)i * a_row + (long long)h * W + w;
-        const float F1 = to_f32(A[a_im + ai]);
-        const float Bq = to_f32(A[a_bq + ai]);
-#pragma unroll
-        for (int r = 0; r < NRHS; ++r) {
-          const float g = Bq * (dx * fw[r][0] + dy * fw[r][1] + dz * fw[r][2]);
-          u[r][0][q] += F1 * fw[r][0] + g * dx;
-          u[r][1][q] += F1 * fw[r][1] + g * dy;
-          u[r][2][q] += F1 * fw[r][2] + g * dz;
-          if (h > 0) {
-            const float gi =
-                Bq * (dx * fi[r][0][q] + dy * fi[r][1][q] + dz * fi[r][2][q]);
-            tp[r][0] += F1 * fi[r][0][q] + gi * dx;
-            tp[r][1] += F1 * fi[r][1][q] + gi * dy;
-            tp[r][2] += F1 * fi[r][2][q] + gi * dz;
+        for (int rr = 0; rr < RG; ++rr) {
+          if (lanes) {
+            im[rr].load(a_im + (i0 + rr) * a_row);
+            bq[rr].load(a_bq + (i0 + rr) * a_row);
+          } else {
+            im[rr].zero();
+            bq[rr].zero();
           }
         }
-      }
-      if (transposed) {
 #pragma unroll
-        for (int r = 0; r < NRHS; ++r)
+        for (int rr = 0; rr < RG; ++rr) {
+          const int i = t * R + i0 + rr;
+          const float4 pi = ownp[i];
+          float fi[NF], u[NF];
 #pragma unroll
-          for (int k = 0; k < 3; ++k) wpart[(3 * r + k) * W + w] = tp[r][k];
-      }
-    }
-
-    // forward rows: fixed-order butterfly across the warp's lanes
+          for (int r = 0; r < NRHS; ++r) {
+            const float4 q = ownf[r * S + i];
+            fi[3 * r] = q.x;
+            fi[3 * r + 1] = q.y;
+            fi[3 * r + 2] = q.z;
+          }
 #pragma unroll
-    for (int q = 0; q < MAX_RPW; ++q) {
-      if (q >= rpw) break;
+          for (int k = 0; k < NF; ++k) u[k] = 0.f;
 #pragma unroll
-      for (int r = 0; r < NRHS; ++r) {
-        float v0 = u[r][0][q], v1 = u[r][1][q], v2 = u[r][2][q];
+          for (int l = 0; l < LPT; ++l) {
+            const float F1 = im[rr][l], Bq = bq[rr][l];
+            const float dx = pi.x - xw[l], dy = pi.y - yw[l],
+                        dz = pi.z - zw[l];
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          v0 += __shfl_xor_sync(0xffffffffu, v0, off);
-          v1 += __shfl_xor_sync(0xffffffffu, v1, off);
-          v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+            for (int r = 0; r < NRHS; ++r) {
+              const float gq = Bq * (dx * fw[3 * r][l] + dy * fw[3 * r + 1][l] +
+                                     dz * fw[3 * r + 2][l]);
+              u[3 * r] = fmaf(gq, dx, fmaf(F1, fw[3 * r][l], u[3 * r]));
+              u[3 * r + 1] =
+                  fmaf(gq, dy, fmaf(F1, fw[3 * r + 1][l], u[3 * r + 1]));
+              u[3 * r + 2] =
+                  fmaf(gq, dz, fmaf(F1, fw[3 * r + 2][l], u[3 * r + 2]));
+              if (TR) {
+                const float gi = Bq * (dx * fi[3 * r] + dy * fi[3 * r + 1] +
+                                       dz * fi[3 * r + 2]);
+                tp[3 * r][l] =
+                    fmaf(gi, dx, fmaf(F1, fi[3 * r], tp[3 * r][l]));
+                tp[3 * r + 1][l] =
+                    fmaf(gi, dy, fmaf(F1, fi[3 * r + 1], tp[3 * r + 1][l]));
+                tp[3 * r + 2][l] =
+                    fmaf(gi, dz, fmaf(F1, fi[3 * r + 2], tp[3 * r + 2][l]));
+              }
+            }
+          }
+          // forward row: fixed-order butterfly over the tile's G threads
+#pragma unroll
+          for (int k = 0; k < NF; ++k)
+            for (int off = G >> 1; off > 0; off >>= 1)
+              u[k] += __shfl_xor_sync(gmask, u[k], off);
+          if (g == ((i0 + rr) & (G - 1)))
+#pragma unroll
+            for (int k = 0; k < NF; ++k) fwd[k * S + i] = u[k];
         }
-        if (lane == 0) {
-          const int i = t * R + warp + WARPS * q;
-          float* out = fwd + 3 * r * S + i;
-          out[0] = v0;
-          out[S] = v1;
-          out[2 * S] = v2;
-        }
       }
+      if (TR && lanes)
+#pragma unroll
+        for (int k = 0; k < NF; ++k)
+#pragma unroll
+          for (int l = 0; l < LPT; ++l)
+            part[(p * NF + k) * GL + w0 + l] = tp[k][l];
     }
-
-    // transposed lanes: fixed-order sum of the warp partials into ranks
-    if (transposed) {
+    if (TR) {
+      // the pass's partials into the ranks, in tile order
       __syncthreads();
-      for (int w = tid; w < W; w += THREADS) {
-        for (int k = 0; k < NF; ++k) {
-          float s = 0.f;
-          for (int p = 0; p < WARPS; ++p) s += part[(p * NF + k) * W + w];
-          acc[k * SW + j0 + w] += s;
+      const int np = min(P, Tv - t0);
+      for (int q = tid; q < SW; q += THREADS) {
+        float s[NF];
+#pragma unroll
+        for (int k = 0; k < NF; ++k) s[k] = acc[k * SW + q];
+        for (int pp = 0; pp < np; ++pp) {
+          const int d = q - tj0[t0 + pp];
+          if (d >= 0 && d < W)
+#pragma unroll
+            for (int k = 0; k < NF; ++k) s[k] += part[(pp * NF + k) * GL + d];
         }
+#pragma unroll
+        for (int k = 0; k < NF; ++k) acc[k * SW + q] = s[k];
       }
       __syncthreads();
     }
@@ -194,7 +279,7 @@ __global__ void __launch_bounds__(THREADS) matvec_kernel(MV b) {
 
   // fold cyclic ranks to slots: ranks < nv are slots, ranks in [nv, nv + W)
   // wrap to slots [0, W)
-  if (transposed) {
+  if (TR) {
     float* out = b.uo + ((long long)c * 9 + 4 + h) * NF * S;
     for (int s = tid; s < S; s += THREADS) {
       for (int k = 0; k < NF; ++k) {
@@ -207,11 +292,19 @@ __global__ void __launch_bounds__(THREADS) matvec_kernel(MV b) {
 }
 
 template <int NRHS, typename AT>
+__global__ void __launch_bounds__(THREADS, NRHS == 1 ? 2 : 1)
+    matvec_kernel(MV b) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  if (blockIdx.y > 0)
+    column_block<NRHS, AT, true>(b, smem);
+  else
+    column_block<NRHS, AT, false>(b, smem);
+}
+
+template <int NRHS, typename AT>
 cudaError_t launch(const MV& b, cudaStream_t stream) {
-  constexpr int NF = 3 * NRHS;
-  const size_t smem =
-      sizeof(float) * ((3 + NF) * (size_t)b.S + NF * (size_t)(b.S + b.W) +
-                       (size_t)WARPS * NF * b.W);
+  const size_t smem = sizeof(float) * smem_floats(NRHS, b.S, b.W, b.T);
   auto kernel = matvec_kernel<NRHS, AT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
@@ -236,10 +329,15 @@ extern "C" int pse_banded_matvec(int nrhs, const float* px, const float* py,
                                  int R, int W, float Lx, float Ly, float Lz,
                                  float tilt, int a_bf16, const void* A,
                                  float* uo, cudaStream_t stream) {
-  if (R % WARPS != 0 || R > WARPS * MAX_RPW || S % R != 0 || W % 32 != 0)
+  // R a multiple of 8 (so of each load group) dividing S; W a multiple of
+  // 64 up to 256, so that every A row segment is 16-byte aligned
+  if (R % 8 != 0 || R > 32 || S % R != 0 || W % 64 != 0 || W > 256 ||
+      reinterpret_cast<uintptr_t>(A) % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  const MV b{px, py, pz, f,  j0, zsh, n_valid, ncx, ncy, S, R, W,
-             S / R, Lx, Ly, Lz, tilt, A, uo};
+  int G = 8;
+  while (G * LPT < W) G *= 2;
+  const MV b{px, py, pz, f,     j0, zsh, n_valid, ncx, ncy, S, R,
+             W,  S / R, G, Lx, Ly, Lz,  tilt,    A,   uo};
   const cudaError_t e = a_bf16 ? dispatch<__nv_bfloat16>(nrhs, b, stream)
                                : dispatch<float>(nrhs, b, stream);
   return (int)e;
