@@ -37,13 +37,18 @@ Phases (each failure makes the script exit non-zero without the result line):
             build_mv's A and <= 1e-6 (float32) / 2^-8 (bfloat16) of the
             float32 plain build; contract <= 1e-5 (float32) and <= 5e-3
             (bfloat16); spread <= 1e-5 (float32) and <= 1e-4 (bfloat16) (max
-            |diff| / max |plain|); spread and contract reruns bitwise equal;
+            |diff| / max |plain|); build_mv u vs matvec u <= 1e-6; matvec
+            (one and two right-hand sides), spread and contract reruns
+            bitwise equal;
   [timing]  CUDA-event times of each kernel wrapper and its plain version,
             with the least time the card could take (bytes at 3.35 TB/s,
             operations at the peak rate of their type), and torch.bmm as the
             library yardstick of the spread (wxy with a pre-built X) and of
             the contract (the pre-gathered windows with wxy), printed as one
-            JSON line;
+            JSON line; the matvec also as its kernel launch alone (CUDA-graph
+            replay, without the wrapper's torch work on its planes), with
+            the bound of the A rows in non-empty tiles beside the full-A
+            bound;
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -103,6 +108,27 @@ def cuda_ms(fn, reps):
     t0.record()
     for _ in range(reps):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def graph_ms(fn, reps):
+    """Mean milliseconds of fn() on the device: reps calls captured in a
+    CUDA graph, one replay timed by CUDA events (no host work inside)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
@@ -574,6 +600,12 @@ def phase_kernels(ph, sim, results):
                 r, _ = rel_max(two, one)
                 ph.check(f"{name} 2-RHS vs two 1-RHS {dtype} tilt={tilt} "
                          f"(bitwise {bool(torch.equal(two, one))})", r, 1e-4)
+            ph.check(f"build_mv u vs matvec u {dtype} tilt={tilt}",
+                     rel_max(u_m, u_b)[0], 1e-6)
+            for fk, got, nrhs in ((f, u_m, 1), (torch.cat([f, f2]), u_mm, 2)):
+                _check_rerun(ph, f"matvec {nrhs}-RHS {dtype} tilt={tilt}",
+                             got, lambda fk=fk: bdn.matvec_banded(
+                                 blocks, *args, fk, p.self_mobility))
             same = bool(torch.equal(A, blocks)) and bool(torch.equal(A, blocks2))
             ph.check(f"build_banded_blocks A == build_mv A {dtype} "
                      f"tilt={tilt} (mismatches)",
@@ -612,6 +644,7 @@ def phase_timing(sim, results):
     import torch
 
     from pse_tpu_torch import cellbins as cb
+    from pse_tpu_torch import kernels
     from pse_tpu_torch.box import make_box
     from pse_tpu_torch.ops import banded_nearfield as bdn
     from pse_tpu_torch.ops import column_farfield as cff
@@ -673,6 +706,29 @@ def phase_timing(sim, results):
                                              p.self_mobility), 20),
         plain_ms=plain)
     bound("matvec_banded", a_bytes + geo + rhs, 40 * pairs)
+
+    def matvec_kernel():
+        uo, rc = bdn._launch_matvec(blocks, bins, tilt, bs, p.L, j0, nv, zsh,
+                                    f)
+        kernels.check("matvec_banded", rc)
+        return uo
+    # the kernel skips the tiles past ceil(n_valid / R): the A it must read
+    # is the rows of the non-empty tiles
+    live_rows = int(((nv.long() + bs.rows - 1) // bs.rows * bs.rows).sum())
+    live_bytes = a_bytes * live_rows // (C * S)
+    mv = results["matvec_banded"]
+    mv["kernel_ms"] = graph_ms(matvec_kernel, 20)
+    mv["bound_nonempty_ms"] = 1e3 * max(
+        (live_bytes + geo + rhs) / HBM_BYTES_PER_S,
+        40 * pairs / PEAK_FLOPS["float32"])
+    print(f"  matvec: wrapper {mv['ms']:.4f} ms (CUDA events), kernel alone "
+          f"{mv['kernel_ms']:.4f} ms (CUDA-graph replay); bound "
+          f"{mv['bound_ms']:.4f} ms by {mv['bound_by']} (all of A, "
+          f"{a_bytes / 1e6:.1f} MB), {mv['bound_nonempty_ms']:.4f} ms (A "
+          f"rows of the {live_rows // bs.rows} non-empty of {C * T} tiles, "
+          f"{live_bytes / 1e6:.1f} MB); kernel at "
+          f"{100 * mv['bound_ms'] / mv['kernel_ms']:.1f} % / "
+          f"{100 * mv['bound_nonempty_ms'] / mv['kernel_ms']:.1f} % of them")
     ms_mm = cuda_ms(lambda: bdn.matvec_banded(blocks, *args, f12,
                                               p.self_mobility), 20)
     results["build_banded_blocks"].update(
@@ -746,7 +802,7 @@ KERNELS = (
     ("fill_cells", "pse_tpu_torch/csrc/fill.cu", "pse_tpu/cellbins.py:123"),
     ("build_mv_banded", "pse_tpu_torch/csrc/banded.cu",
      "pse_tpu/ops/banded_nearfield.py:1472"),
-    ("matvec_banded", "pse_tpu_torch/csrc/banded.cu",
+    ("matvec_banded", "pse_tpu_torch/csrc/banded_matvec.cu",
      "pse_tpu/ops/banded_nearfield.py:1147"),
     ("contract_col", "pse_tpu_torch/csrc/contract.cu",
      "pse_tpu/ops/column_farfield.py:307"),
@@ -806,6 +862,7 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            **{k: r[k] for k in ("kernel_ms", "bound_nonempty_ms") if k in r},
         })
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "

@@ -49,27 +49,6 @@ N, PHI, XI, ERROR, TILT = 100_000, 0.45, 0.5, 1e-3, 0.3
 ROUNDS, REPS = 5, 20
 
 
-def graph_ms(fn, reps):
-    """Mean milliseconds of fn() on the device: reps calls captured in a
-    CUDA graph, one replay timed by CUDA events."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
-    graph.replay()
-    t1.record()
-    torch.cuda.synchronize()
-    return t0.elapsed_time(t1) / reps
-
-
 def load_other(root: Path):
     """Import another checkout's pse_tpu_torch as the package
     ``pse_tpu_torch_other`` (its kernels build into its own tree)."""
@@ -111,7 +90,7 @@ def ab_matvec(sides, order, pos, L):
     """The matvec A/B of main(): timings, the checks, and the two bounds."""
     import torch
 
-    from chip_smoke import HBM_BYTES_PER_S, cuda_ms, rel_max
+    from chip_smoke import HBM_BYTES_PER_S, cuda_ms, graph_ms, rel_max
     from pse_tpu_torch.ab_build_mv import operands
     from pse_tpu_torch.ops import banded_nearfield as bdn
 
@@ -191,7 +170,7 @@ def ab_far_field(libs, order, pos, L):
     """The far-field A/B of main(): timings, checks and yardsticks."""
     import torch
 
-    from chip_smoke import cuda_ms, rel_max
+    from chip_smoke import cuda_ms, graph_ms, rel_max
     from pse_tpu_torch import cellbins as cb
     from pse_tpu_torch import integrator, kernels, make_params
     from pse_tpu_torch.box import make_box

@@ -23,13 +23,20 @@
 //     before any is used; the lanes' window coordinates and f sit in
 //     registers, so the transposed sums stay in registers over the tile;
 //   * G = W / 8 (rounded up to a power of two) threads cover a tile's
-//     lanes and THREADS / G tiles run at once; the forward row sums are a
-//     fixed-order butterfly over the G threads;
+//     lanes and THREADS / G tiles run at once; each thread writes its RG
+//     rows' forward partial sums to shared memory, and after a __syncwarp
+//     one thread per (row, component) sums the G partials in thread order
+//     (fewer shared-memory operations than a shuffle butterfly per row,
+//     which timed markedly slower);
 //   * the block stages its own column (x, y, z, f) and the neighbour
 //     window by rank (S + W ranks, the wrap's z + Lz applied) in shared
 //     memory once; after each pass of tiles the tiles' transposed partials
 //     are added into the rank accumulator in tile order by one thread per
-//     rank.  No float atomics: reruns are bitwise equal.
+//     rank.  No float atomics: reruns are bitwise equal;
+//   * the blocks with a transposed half run first and the lighter h = 0
+//     blocks last, where they fill the grid's last wave (1080 blocks, two
+//     per SM at the bench shapes).
+// Its H100 times are in PERF.md.
 #include "common.cuh"
 
 namespace {
@@ -89,23 +96,26 @@ struct Coef8<float> {
 };
 
 // Shared memory floats: own (x, y, z, 0) and NRHS (f, 0) rows as float4,
-// the window by rank, the rank accumulator, the tiles' partials, and the
-// per-tile j0 and zsh.
+// the window by rank, the rank accumulator, the tiles' transposed
+// partials, the forward partials of a load group (RG <= 4, one row of
+// padding per tile group), and the per-tile j0 and zsh.
 __host__ __device__ inline size_t smem_floats(int nrhs, int S, int W, int T) {
   const int nf = 3 * nrhs;
   return 4 * (size_t)(1 + nrhs) * S + (size_t)(3 + 2 * nf) * (S + W) +
-         (size_t)nf * THREADS * LPT + 2 * (size_t)T;
+         (size_t)nf * THREADS * LPT + 2 * (size_t)T +
+         (size_t)THREADS * (4 * nf + 1);
 }
 
 template <int NRHS, typename AT, bool TR>
-__device__ __forceinline__ void column_block(const MV& b, float* smem) {
+__device__ __forceinline__ void column_block(const MV& b, float* smem,
+                                             const int c, const int h) {
   constexpr int NF = 3 * NRHS;
   constexpr int RG = sizeof(AT) == 2 ? 4 : 2;  // rows per load group
   const int S = b.S, W = b.W, R = b.R, T = b.T, G = b.G;
   const int SW = S + W, P = THREADS / G, GL = G * LPT;
   const int C = b.ncx * b.ncy;
   const long long CS = (long long)C * S;
-  const int c = blockIdx.x, h = blockIdx.y, tid = threadIdx.x;
+  const int tid = threadIdx.x;
 
   const int cx = c / b.ncy, cy = c % b.ncy;
   const int ox = OX[h], oy = OY[h];
@@ -123,7 +133,8 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem) {
   float* win = reinterpret_cast<float*>(ownf + NRHS * S);  // (3 + NF) x SW
   float* acc = win + (3 + NF) * SW;                       // NF x SW
   float* part = acc + NF * SW;                            // P x NF x GL
-  int* tj0 = reinterpret_cast<int*>(part + NF * THREADS * LPT);  // T
+  float* red = part + NF * THREADS * LPT;  // P x (RG NF G + G): row sums
+  int* tj0 = reinterpret_cast<int*>(red + THREADS * (4 * NF + 1));  // T
   float* tzs = reinterpret_cast<float*>(tj0 + T);                // T
 
   for (int s = tid; s < S; s += THREADS) {
@@ -160,6 +171,7 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem) {
   __syncthreads();
 
   const int p = tid / G, g = tid % G, w0 = g * LPT;
+  float* redp = red + p * (RG * NF * G + (G < 32 ? G : 0));
   const bool lanes = w0 < W;  // W = 192 leaves a quarter of the group idle
   const unsigned gmask =
       G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((tid & 31) & ~(G - 1));
@@ -187,8 +199,7 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem) {
       const AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
                        (long long)h * W + w0;
       const AT* a_bq = a_im + (long long)S * a_row;
-      for (int i0 = 0; i0 < R; i0 += RG) {
-        Coef8<AT> im[RG], bq[RG];
+      auto load_rows = [&](Coef8<AT>* im, Coef8<AT>* bq, int i0) {
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr) {
           if (lanes) {
@@ -199,6 +210,10 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem) {
             bq[rr].zero();
           }
         }
+      };
+      Coef8<AT> im[RG], bq[RG];
+      load_rows(im, bq, 0);
+      for (int i0 = 0; i0 < R; i0 += RG) {
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr) {
           const int i = t * R + i0 + rr;
@@ -239,15 +254,27 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem) {
               }
             }
           }
-          // forward row: fixed-order butterfly over the tile's G threads
+          // the row's partial sums, one per thread of the tile
 #pragma unroll
-          for (int k = 0; k < NF; ++k)
-            for (int off = G >> 1; off > 0; off >>= 1)
-              u[k] += __shfl_xor_sync(gmask, u[k], off);
-          if (g == ((i0 + rr) & (G - 1)))
-#pragma unroll
-            for (int k = 0; k < NF; ++k) fwd[k * S + i] = u[k];
+          for (int k = 0; k < NF; ++k) redp[(rr * NF + k) * G + g] = u[k];
         }
+        // forward rows: each of the group's RG NF sums over the G threads,
+        // in thread order, by one thread
+        __syncwarp(gmask);
+        for (int o = g; o < RG * NF; o += G) {
+          const float4* v = reinterpret_cast<const float4*>(redp + o * G);
+          float sum = 0.f;
+          for (int q = 0; q < G / 4; ++q) {
+            const float4 x = v[q];
+            sum += x.x;
+            sum += x.y;
+            sum += x.z;
+            sum += x.w;
+          }
+          fwd[(o % NF) * S + t * R + i0 + o / NF] = sum;
+        }
+        __syncwarp(gmask);
+        if (i0 + RG < R) load_rows(im, bq, i0 + RG);
       }
       if (TR && lanes)
 #pragma unroll
@@ -296,10 +323,15 @@ __global__ void __launch_bounds__(THREADS, NRHS == 1 ? 2 : 1)
     matvec_kernel(MV b) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  if (blockIdx.y > 0)
-    column_block<NRHS, AT, true>(b, smem);
+  // the blocks with a transposed half first, the lighter h = 0 ones last,
+  // so that they fill the last wave
+  const int C = b.ncx * b.ncy;
+  const int item = blockIdx.x + C * blockIdx.y;
+  const int c = item % C, h = item < (N_HALF - 1) * C ? 1 + item / C : 0;
+  if (h > 0)
+    column_block<NRHS, AT, true>(b, smem, c, h);
   else
-    column_block<NRHS, AT, false>(b, smem);
+    column_block<NRHS, AT, false>(b, smem, c, h);
 }
 
 template <int NRHS, typename AT>

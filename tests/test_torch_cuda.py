@@ -102,7 +102,8 @@ def test_banded_kernels_match_plain_version(cuda, dtype, bound, n, L, tilt,
 
 
 def test_banded_kernels_at_16_rows(cuda):
-    """grow_config halves the row tile when W cannot widen."""
+    """grow_config halves the row tile when W cannot widen: build_mv and
+    the matvec against the plain version and each other."""
     cfg, pos, box = _setup(5300, 40.0, 0.05)
     cfg = pi.grow_config(pi.grow_config(pi.grow_config(
         cfg, flags=pi.OVF_BAND), flags=pi.OVF_BAND), flags=pi.OVF_BAND)
@@ -114,8 +115,87 @@ def test_banded_kernels_at_16_rows(cuda):
     args = (bins, 0.05, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
             zsh)
     ref = bdn.matvec_banded_reference(*args[:9], f, p.self_mobility)
-    _, u = bdn.build_mv_banded(*args, f, p.self_mobility)
+    blocks, u = bdn.build_mv_banded(*args, f, p.self_mobility)
     assert _rel_max(u, ref) < 1e-5
+    u_m = bdn.matvec_banded(blocks, *args, f, p.self_mobility)
+    assert _rel_max(u_m, ref) < 1e-5
+    assert _rel_max(u, u_m) < 1e-6
+
+
+def _cut_columns(pos, box, spec):
+    """Remove particles so that one column is empty, one holds a multiple
+    of R and one does not: (kept positions, the three columns)."""
+    bins = bin_columns(pos, box, spec.bins)
+    cell, rank = bins.cell_of.long(), bins.rank_of.long()
+    counts = torch.bincount(cell, minlength=spec.bins.n_cells_total)
+    R = spec.rows
+    c_empty, c_full, c_ragged = (int(c) for c in
+                                 torch.argsort(counts, descending=True)[:3])
+    keep = cell != c_empty
+    keep &= ~((cell == c_full) & (rank >= R * (int(counts[c_full]) // R)))
+    keep &= ~((cell == c_ragged)
+              & (rank >= R * (int(counts[c_ragged]) // R) - 5))
+    return pos[keep], (c_empty, c_full, c_ragged)
+
+
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-5),
+                                         ("bfloat16", 2e-3)])
+def test_matvec_at_empty_full_and_ragged_columns(cuda, dtype, bound):
+    """The matvec skips the tiles past ceil(n_valid / R): held to the plain
+    version and to build_mv's u (<= 1e-6) with one column empty, one at a
+    multiple of R and one not (cut from N = 5300 in L = 40), one and two
+    right-hand sides (two vs two single launches <= 1e-4), reruns bitwise
+    equal."""
+    cfg, pos, box = _setup(5300, 40.0, 0.2)
+    p = cfg.params
+    bs = cfg.band_spec._replace(block_dtype=dtype)
+    pos, (c0, c1, c2) = _cut_columns(pos, box, bs)
+    bins = bin_columns(pos, box, bs.bins)
+    j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+    R = bs.rows
+    assert not bool(ovf) and int(nv[c0]) == 0
+    assert int(nv[c1]) > 0 and int(nv[c1]) % R == 0
+    assert int(nv[c2]) % R != 0
+    f = vec_to_cells(bins, bs.bins, torch.randn(pos.shape, device=cuda))
+    g = vec_to_cells(bins, bs.bins, torch.randn(pos.shape, device=cuda))
+    args = (bins, 0.2, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
+            zsh)
+    ref = bdn.matvec_banded_reference(*args[:9], f, p.self_mobility)
+    blocks, u_b = bdn.build_mv_banded(*args, f, p.self_mobility)
+    u = bdn.matvec_banded(blocks, *args, f, p.self_mobility)
+    assert _rel(u, ref) < bound
+    assert _rel_max(u, u_b) < 1e-6
+    fg = torch.cat([f, g])
+    u2 = bdn.matvec_banded(blocks, *args, fg, p.self_mobility)
+    ug = bdn.matvec_banded(blocks, *args, g, p.self_mobility)
+    assert _rel_max(u2, torch.cat([u, ug])) < 1e-4
+    assert torch.equal(bdn.matvec_banded(blocks, *args, f, p.self_mobility),
+                       u)
+    assert torch.equal(bdn.matvec_banded(blocks, *args, fg, p.self_mobility),
+                       u2)
+
+
+@pytest.mark.parametrize("nrhs", [1, 2])
+def test_matvec_reruns_are_bitwise_equal(cuda, nrhs):
+    """No float atomics: the same launch gives the same bits, at the
+    default window and the widest (W = 256), bf16 blocks."""
+    cfg, pos, box = _setup(5300, 40.0, 0.3)
+    p = cfg.params
+    for window in (None, 256):
+        bs = cfg.band_spec if window is None else \
+            cfg.band_spec._replace(window=window)
+        bins = bin_columns(pos, box, bs.bins)
+        j0, nv, _, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+        f = torch.cat([vec_to_cells(bins, bs.bins,
+                                    torch.randn(pos.shape, device=cuda))
+                       for _ in range(nrhs)])
+        args = (bins, 0.3, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, j0,
+                nv, zsh)
+        blocks, _ = bdn.build_mv_banded(*args, f[:3], p.self_mobility)
+        u = bdn.matvec_banded(blocks, *args, f, p.self_mobility)
+        for _ in range(3):
+            assert torch.equal(
+                bdn.matvec_banded(blocks, *args, f, p.self_mobility), u)
 
 
 @pytest.mark.parametrize("dtype,bound", [("float32", 1e-5),
