@@ -99,7 +99,7 @@ struct Coef8<float> {
 // the window by rank, the rank accumulator, the tiles' transposed
 // partials, the forward partials of a load group (RG <= 4, one row of
 // padding per tile group), and the per-tile j0 and zsh.
-__host__ __device__ inline size_t smem_floats(int nrhs, int S, int W, int T) {
+size_t smem_floats(int nrhs, int S, int W, int T) {
   const int nf = 3 * nrhs;
   return 4 * (size_t)(1 + nrhs) * S + (size_t)(3 + 2 * nf) * (S + W) +
          (size_t)nf * THREADS * LPT + 2 * (size_t)T +
