@@ -28,11 +28,18 @@
 //     one thread per (row, component) sums the G partials in thread order
 //     (fewer shared-memory operations than a shuffle butterfly per row,
 //     which timed markedly slower);
-//   * the block stages its own column (x, y, z, f) and the neighbour
-//     window by rank (S + W ranks, the wrap's z + Lz applied) in shared
-//     memory once; after each pass of tiles the tiles' transposed partials
-//     are added into the rank accumulator in tile order by one thread per
+//   * the block stages the own rows (x, y, z, f) of each pass of tiles in
+//     shared memory; each tile group loads its window (neighbour slot by
+//     rank, the wrap's z + Lz applied) from global memory in coalesced
+//     rows into its own scratch, from which a thread reads its lanes in
+//     16-byte loads; the same scratch then holds the group's row sums and
+//     its transposed partials.  After each pass the tiles' partials are
+//     added into the rank accumulator in tile order by one thread per
 //     rank.  No float atomics: reruns are bitwise equal;
+//   * shared memory grows with S only by the rank accumulator, 3 NRHS
+//     (S + W) floats, beside 50-130 KB of fixed size: one RHS launches at
+//     S up to 11,136 or more, two up to 4,352 or more (W = 64, R = 32),
+//     above build_mv's limits in banded.cu (5,632 and 3,408 at most);
 //   * the blocks with a transposed half run first and the lighter h = 0
 //     blocks last, where they fill the grid's last wave (1080 blocks, two
 //     per SM at the bench shapes).
@@ -95,15 +102,28 @@ struct Coef8<float> {
   }
 };
 
-// Shared memory floats: own (x, y, z, 0) and NRHS (f, 0) rows as float4,
-// the window by rank, the rank accumulator, the tiles' transposed
-// partials, the forward partials of a load group (RG <= 4, one row of
-// padding per tile group), and the per-tile j0 and zsh.
-size_t smem_floats(int nrhs, int S, int W, int T) {
+// Own rows staged per pass of tiles: the P = THREADS / G tiles that run at
+// once, or all T.
+__host__ __device__ __forceinline__ int pass_rows(int G, int T, int R) {
+  return (THREADS / G < T ? THREADS / G : T) * R;
+}
+
+// A tile group's scratch: its window's 3 + NF rows of G LPT lanes, which
+// the forward sums of a load group (RG NF G <= 4 NF G floats) and then
+// the transposed partials (NF rows) reuse; one row of padding when
+// several groups share a warp.
+__host__ __device__ __forceinline__ int group_floats(int nf, int G) {
+  return (3 + nf) * G * LPT + (G < 32 ? G : 0);
+}
+
+// Shared memory floats: a pass's own (x, y, z, 0) and NRHS (f, 0) rows as
+// float4, the rank accumulator, the P tile groups' scratch, and the
+// per-tile j0 and zsh.
+size_t smem_floats(int nrhs, int S, int W, int T, int G, int R) {
   const int nf = 3 * nrhs;
-  return 4 * (size_t)(1 + nrhs) * S + (size_t)(3 + 2 * nf) * (S + W) +
-         (size_t)nf * THREADS * LPT + 2 * (size_t)T +
-         (size_t)THREADS * (4 * nf + 1);
+  return 4 * (size_t)(1 + nrhs) * pass_rows(G, T, R) +
+         (size_t)nf * (S + W) + (size_t)(THREADS / G) * group_floats(nf, G) +
+         2 * (size_t)T;
 }
 
 template <int NRHS, typename AT, bool TR>
@@ -113,6 +133,7 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem,
   constexpr int RG = sizeof(AT) == 2 ? 4 : 2;  // rows per load group
   const int S = b.S, W = b.W, R = b.R, T = b.T, G = b.G;
   const int SW = S + W, P = THREADS / G, GL = G * LPT;
+  const int PR = pass_rows(G, T, R);
   const int C = b.ncx * b.ncy;
   const long long CS = (long long)C * S;
   const int tid = threadIdx.x;
@@ -128,35 +149,28 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem,
   const float sy = wy * b.Ly;
   const float sx = __fadd_rn(wx * b.Lx, __fmul_rn(b.tilt, sy));
 
-  float4* ownp = reinterpret_cast<float4*>(smem);        // S
-  float4* ownf = ownp + S;                                // NRHS x S
-  float* win = reinterpret_cast<float*>(ownf + NRHS * S);  // (3 + NF) x SW
-  float* acc = win + (3 + NF) * SW;                       // NF x SW
-  float* part = acc + NF * SW;                            // P x NF x GL
-  float* red = part + NF * THREADS * LPT;  // P x (RG NF G + G): row sums
-  int* tj0 = reinterpret_cast<int*>(red + THREADS * (4 * NF + 1));  // T
-  float* tzs = reinterpret_cast<float*>(tj0 + T);                // T
+  float4* ownp = reinterpret_cast<float4*>(smem);          // PR
+  float4* ownf = ownp + PR;                                 // NRHS x PR
+  float* acc = reinterpret_cast<float*>(ownf + NRHS * PR);  // NF x SW
+  const int WS = group_floats(NF, G);
+  float* scr = acc + NF * SW;                                // P x WS
+  int* tj0 = reinterpret_cast<int*>(scr + P * WS);           // T
+  float* tzs = reinterpret_cast<float*>(tj0 + T);            // T
 
-  for (int s = tid; s < S; s += THREADS) {
-    const long long o = (long long)c * S + s;
-    ownp[s] = make_float4(b.px[o], b.py[o], b.pz[o], 0.f);
+  // the own rows of the pass of tiles from t0
+  auto stage_own = [&](int t0) {
+    const int i0 = t0 * R, n = min(PR, Tv * R - i0);
+    for (int s = tid; s < n; s += THREADS) {
+      const long long o = (long long)c * S + i0 + s;
+      ownp[s] = make_float4(b.px[o], b.py[o], b.pz[o], 0.f);
 #pragma unroll
-    for (int r = 0; r < NRHS; ++r)
-      ownf[r * S + s] = make_float4(b.f[3 * r * CS + o],
-                                    b.f[(3 * r + 1) * CS + o],
-                                    b.f[(3 * r + 2) * CS + o], 0.f);
-  }
-  // rank q < nv is slot q; rank q >= nv is slot q - nv one period up
-  for (int q = tid; q < SW; q += THREADS) {
-    const bool wrap = q >= nv;
-    const int j = wrap ? q - nv : q;
-    const long long o = (long long)nbr * S + min(j, S - 1);
-    win[q] = b.px[o] + sx;
-    win[SW + q] = b.py[o] + sy;
-    win[2 * SW + q] = b.pz[o] + (wrap ? b.Lz : 0.f);
-#pragma unroll
-    for (int k = 0; k < NF; ++k) win[(3 + k) * SW + q] = b.f[k * CS + o];
-  }
+      for (int r = 0; r < NRHS; ++r)
+        ownf[r * PR + s] = make_float4(b.f[3 * r * CS + o],
+                                       b.f[(3 * r + 1) * CS + o],
+                                       b.f[(3 * r + 2) * CS + o], 0.f);
+    }
+  };
+  stage_own(0);
   for (int t = tid; t < T; t += THREADS) {
     const long long wt = ((long long)h * C + c) * T + t;
     tj0[t] = b.j0[wt];
@@ -171,7 +185,7 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem,
   __syncthreads();
 
   const int p = tid / G, g = tid % G, w0 = g * LPT;
-  float* redp = red + p * (RG * NF * G + (G < 32 ? G : 0));
+  float* grp = scr + p * WS;  // this tile group's scratch
   const bool lanes = w0 < W;  // W = 192 leaves a quarter of the group idle
   const unsigned gmask =
       G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((tid & 31) & ~(G - 1));
@@ -179,23 +193,15 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem,
   const long long a_row = (long long)N_HALF * W;
 
   for (int t0 = 0; t0 < Tv; t0 += P) {
+    if (t0 > 0) {  // the last pass is done with its own rows
+      __syncthreads();
+      stage_own(t0);
+      __syncthreads();
+    }
     const int t = t0 + p;
     if (t < Tv) {  // the same for the G threads of a tile
       const int j0 = tj0[t];
       const float zs = tzs[t];
-      float xw[LPT], yw[LPT], zw[LPT], fw[NF][LPT], tp[NF][LPT];
-#pragma unroll
-      for (int l = 0; l < LPT; ++l) {
-        const int q = min(j0 + w0 + l, SW - 1);
-        xw[l] = win[q];
-        yw[l] = win[SW + q];
-        zw[l] = win[2 * SW + q] - zs;
-#pragma unroll
-        for (int k = 0; k < NF; ++k) {
-          fw[k][l] = win[(3 + k) * SW + q];
-          tp[k][l] = 0.f;
-        }
-      }
       const AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
                        (long long)h * W + w0;
       const AT* a_bq = a_im + (long long)S * a_row;
@@ -212,16 +218,54 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem,
         }
       };
       Coef8<AT> im[RG], bq[RG];
-      load_rows(im, bq, 0);
+      load_rows(im, bq, 0);  // in flight while the window loads
+      // the window's GL lanes into the scratch, lane wl of each row by
+      // thread wl % G: rank q < nv is slot q, rank q >= nv is slot q - nv
+      // one period up
+#pragma unroll
+      for (int m = 0; m < LPT; ++m) {
+        const int wl = g + G * m;
+        const int q = min(j0 + wl, SW - 1);
+        const bool wrap = q >= nv;
+        const long long o =
+            (long long)nbr * S + min(wrap ? q - nv : q, S - 1);
+        grp[wl] = __ldg(b.px + o) + sx;
+        grp[GL + wl] = __ldg(b.py + o) + sy;
+        grp[2 * GL + wl] = (__ldg(b.pz + o) + (wrap ? b.Lz : 0.f)) - zs;
+#pragma unroll
+        for (int k = 0; k < NF; ++k)
+          grp[(3 + k) * GL + wl] = __ldg(b.f + k * CS + o);
+      }
+      __syncwarp(gmask);
+      // this thread's LPT lanes of each row, two 16-byte loads a row
+      float xw[LPT], yw[LPT], zw[LPT], fw[NF][LPT], tp[NF][LPT];
+      auto lanes8 = [&](float* dst, int row) {
+        const float4* src =
+            reinterpret_cast<const float4*>(grp + row * GL + w0);
+        const float4 lo = src[0], hi = src[1];
+        dst[0] = lo.x, dst[1] = lo.y, dst[2] = lo.z, dst[3] = lo.w;
+        dst[4] = hi.x, dst[5] = hi.y, dst[6] = hi.z, dst[7] = hi.w;
+      };
+      lanes8(xw, 0);
+      lanes8(yw, 1);
+      lanes8(zw, 2);
+#pragma unroll
+      for (int k = 0; k < NF; ++k) {
+        lanes8(fw[k], 3 + k);
+#pragma unroll
+        for (int l = 0; l < LPT; ++l) tp[k][l] = 0.f;
+      }
+      __syncwarp(gmask);  // the scratch holds the row sums from here
+      float* redp = grp;
       for (int i0 = 0; i0 < R; i0 += RG) {
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr) {
-          const int i = t * R + i0 + rr;
+          const int i = p * R + i0 + rr;  // row t R + i0 + rr of the column
           const float4 pi = ownp[i];
           float fi[NF], u[NF];
 #pragma unroll
           for (int r = 0; r < NRHS; ++r) {
-            const float4 q = ownf[r * S + i];
+            const float4 q = ownf[r * PR + i];
             fi[3 * r] = q.x;
             fi[3 * r + 1] = q.y;
             fi[3 * r + 2] = q.z;
@@ -281,7 +325,7 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem,
         for (int k = 0; k < NF; ++k)
 #pragma unroll
           for (int l = 0; l < LPT; ++l)
-            part[(p * NF + k) * GL + w0 + l] = tp[k][l];
+            grp[k * GL + w0 + l] = tp[k][l];
     }
     if (TR) {
       // the pass's partials into the ranks, in tile order
@@ -295,7 +339,7 @@ __device__ __forceinline__ void column_block(const MV& b, float* smem,
           const int d = q - tj0[t0 + pp];
           if (d >= 0 && d < W)
 #pragma unroll
-            for (int k = 0; k < NF; ++k) s[k] += part[(pp * NF + k) * GL + d];
+            for (int k = 0; k < NF; ++k) s[k] += scr[pp * WS + k * GL + d];
         }
 #pragma unroll
         for (int k = 0; k < NF; ++k) acc[k * SW + q] = s[k];
@@ -336,7 +380,8 @@ __global__ void __launch_bounds__(THREADS, NRHS == 1 ? 2 : 1)
 
 template <int NRHS, typename AT>
 cudaError_t launch(const MV& b, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(NRHS, b.S, b.W, b.T);
+  const size_t smem =
+      sizeof(float) * smem_floats(NRHS, b.S, b.W, b.T, b.G, b.R);
   auto kernel = matvec_kernel<NRHS, AT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;

@@ -175,6 +175,49 @@ def test_matvec_at_empty_full_and_ragged_columns(cuda, dtype, bound):
                        u2)
 
 
+@pytest.mark.parametrize("nrhs,window,rows,cap,Lz", [
+    (1, 128, 32, 5440, 400.0), (2, 256, 32, 2752, 400.0),
+    (2, 64, 16, 3408, 1600.0)])
+def test_matvec_at_the_largest_cap_build_mv_launches(cuda, nrhs, window,
+                                                     rows, cap, Lz):
+    """The matvec's shared memory grows with S only by its rank
+    accumulator, so it applies every A that build_mv can build: at the
+    largest cap S that build_mv's shared memory takes for this window and
+    number of right-hand sides, in a tall box (24 x 24 x Lz, 12 columns of
+    over 1000 particles, so several passes of tiles per block), against
+    the plain version, build_mv's u (<= 1e-6) and a rerun (bitwise)."""
+    L = (24.0, 24.0, Lz)
+    n = 12 * (1200 if Lz == 400.0 else 1100)
+    params = make_params(xi=0.5, error=1e-3, L=L)
+    cfg = pi.make_config(params, n, engine="banded", has_forces=False,
+                         device="cuda")
+    p = cfg.params
+    bs = cfg.band_spec
+    bs = bs._replace(window=window, rows=rows,
+                     bins=bs.bins._replace(cap=cap))
+    assert bs.bins.n_cells_total == 12
+    rng = np.random.default_rng(0)
+    pos = torch.as_tensor((rng.uniform(-0.5, 0.5, size=(n, 3))
+                           * np.array(L)).astype(np.float32), device=cuda)
+    box = make_box(L, 0.2)
+    bins = bin_columns(pos, box, bs.bins)
+    j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+    assert not bool(ovf) and int(nv.min()) > 1000
+    f = torch.cat([vec_to_cells(bins, bs.bins,
+                                torch.randn(pos.shape, device=cuda))
+                   for _ in range(nrhs)])
+    args = (bins, 0.2, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
+            zsh)
+    ref = bdn._reference_per_rhs(f, lambda fk: bdn.matvec_banded_reference(
+        *args[:9], fk, p.self_mobility))
+    blocks, u_b = bdn.build_mv_banded(*args, f, p.self_mobility)
+    u = bdn.matvec_banded(blocks, *args, f, p.self_mobility)
+    assert _rel(u, ref) < 2e-3
+    assert _rel_max(u, u_b) < 1e-6
+    assert torch.equal(bdn.matvec_banded(blocks, *args, f, p.self_mobility),
+                       u)
+
+
 @pytest.mark.parametrize("nrhs", [1, 2])
 def test_matvec_reruns_are_bitwise_equal(cuda, nrhs):
     """No float atomics: the same launch gives the same bits, at the
