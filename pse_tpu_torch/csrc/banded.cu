@@ -39,9 +39,9 @@
 //
 // What bounds it on the H100: at bench scale (C = 216, S = 576, W = 128,
 // bf16) the build writes A, 318.5 MB, >= ~95 us at 3.35 TB/s (the build
-// alone moves nothing else of size).  The pair arithmetic (~80 M pairs, ~40 flops each
-// forward + transposed, plus a degree-8 Clenshaw pair in the build) is of
-// the same order on the CUDA cores.
+// alone moves nothing else of size).  The pair arithmetic (~80 M pairs,
+// ~40 flops each forward + transposed, plus a degree-8 Clenshaw pair in the
+// build) is of the same order on the CUDA cores.
 //
 // Design: 256 threads (8 warps) per block; lane w of a warp walks window
 // lanes w, w+32, ... (coalesced A and window reads) and the warp's rows are
@@ -64,8 +64,8 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int MAX_RPW = 4;  // rows per warp: R <= 32
 
 // MODE_BUILD_MV builds A and applies it, MODE_BUILD only builds it (NRHS =
-// 0, no f, no uo); mode 0, the matvec, is banded_matvec.cu
-constexpr int MODE_BUILD_MV = 1, MODE_BUILD = 2;
+// 0, no f, no uo)
+constexpr int MODE_BUILD_MV = 0, MODE_BUILD = 1;
 
 // (0,0) then the positive half stencil (banded_nearfield.full_xy_offsets)
 __constant__ int OX[N_HALF] = {0, 0, 1, 1, 1};
@@ -89,7 +89,8 @@ struct Band {
 // The Clenshaw recurrence of chebyshev.eval_pair_functions, rounded step by
 // step as it is there (no fused multiply-add), so that the build's float32
 // coefficients are the plain build's.  On the H100 that costs ~4 % of a
-// build_mv (pse_tpu_torch/ab_build_mv.py times it against contracted FMAs).
+// build_mv (pse_tpu_torch/ab.py --contract times it against contracted
+// FMAs).
 __device__ __forceinline__ float clenshaw(const float* c_lo, const float* c_hi,
                                           bool in_lo, float t, int n) {
   const float t2 = 2.f * t;
@@ -201,28 +202,24 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
         const int i = t * R + warp + WARPS * q;
         const float dx = xi[q] - xw, dy = yi[q] - yw, dz = zi[q] - zw;
         const long long ai = (long long)i * a_row + (long long)h * W + w;
-        float F1, Bq;
-        {
-          const float d2 = __fadd_rn(
-              __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-              __fmul_rn(dz, dz));
-          const bool valid = (mi[q] * mw > 0.f) && (d2 < b.cut2) &&
-                             (d2 >= b.dr2) && !(h == 0 && j == i);
-          const float d2s = valid ? d2 : 1.f;
-          const float r = sqrtf(d2s);
-          const bool in_lo = r < b.mid;
-          const float tt = in_lo ? (2.f * r - cf[0]) / cf[1]
-                                 : (2.f * r - cf[2]) / cf[3];
-          const float uf1 = clenshaw(cf + 4, cf + 4 + 2 * nc, in_lo, tt, nc);
-          const float uf2 =
-              clenshaw(cf + 4 + nc, cf + 4 + 3 * nc, in_lo, tt, nc);
-          const AT s1 = from_f32<AT>(valid ? uf1 : 0.f);
-          const AT s2 = from_f32<AT>(valid ? (uf2 - uf1) / d2s : 0.f);
-          A[a_im + ai] = s1;
-          A[a_bq + ai] = s2;
-          F1 = to_f32(s1);
-          Bq = to_f32(s2);
-        }
+        const float d2 = __fadd_rn(
+            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+            __fmul_rn(dz, dz));
+        const bool valid = (mi[q] * mw > 0.f) && (d2 < b.cut2) &&
+                           (d2 >= b.dr2) && !(h == 0 && j == i);
+        const float d2s = valid ? d2 : 1.f;
+        const float dist = sqrtf(d2s);
+        const bool in_lo = dist < b.mid;
+        const float tt = in_lo ? (2.f * dist - cf[0]) / cf[1]
+                               : (2.f * dist - cf[2]) / cf[3];
+        const float uf1 = clenshaw(cf + 4, cf + 4 + 2 * nc, in_lo, tt, nc);
+        const float uf2 =
+            clenshaw(cf + 4 + nc, cf + 4 + 3 * nc, in_lo, tt, nc);
+        const AT s1 = from_f32<AT>(valid ? uf1 : 0.f);
+        const AT s2 = from_f32<AT>(valid ? (uf2 - uf1) / d2s : 0.f);
+        A[a_im + ai] = s1;
+        A[a_bq + ai] = s2;
+        const float F1 = to_f32(s1), Bq = to_f32(s2);
 #pragma unroll
         for (int r = 0; r < NRHS; ++r) {
           const float g = Bq * (dx * fw[r][0] + dy * fw[r][1] + dz * fw[r][2]);

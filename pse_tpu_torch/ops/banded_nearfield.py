@@ -288,15 +288,15 @@ def _cheb_operand(cheb: ChebPair, device: str) -> torch.Tensor:
     return device_coeffs(cheb, device)
 
 
-# csrc/banded.cu modes (mode 0, the matvec, is csrc/banded_matvec.cu)
-MODE_BUILD_MV, MODE_BUILD = 1, 2
+# csrc/banded.cu modes
+MODE_BUILD_MV, MODE_BUILD = 0, 1
 
 
 def _band_operands(bins: CellBins, spec: BandSpec, j0, n_valid, zsh,
                    f_cells):
-    """The banded kernels' common operands, checked and laid out: (coords
-    [px, py, pz, mask], f or None, nrhs, j0 (5, C, T), zsh (5, C, T),
-    n_valid).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None."""
+    """The banded kernels' common operands, checked and laid out: (xyz
+    [px, py, pz], f or None, nrhs, j0 (5, C, T), zsh (5, C, T), n_valid).
+    ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None."""
     if tuple(spec.offsets[:N_HALF]) != full_xy_offsets()[:N_HALF]:
         raise ValueError("banded kernels assume full_xy_offsets() order")
     ncx, ncy, _ = spec.bins.n_cells
@@ -312,14 +312,14 @@ def _band_operands(bins: CellBins, spec: BandSpec, j0, n_valid, zsh,
             raise ValueError("banded kernels take one or two right-hand "
                              "sides, (3, C, S) or (6, C, S)")
         f = f_cells.to(torch.float32).contiguous()
-    coords = [t.to(torch.float32).contiguous()
-              for t in (bins.px, bins.py, bins.pz, bins.mask)]
+    xyz = [t.to(torch.float32).contiguous()
+           for t in (bins.px, bins.py, bins.pz)]
     j0h = j0[:N_HALF].to(torch.int32).contiguous()
     zsh = zsh[:N_HALF].to(torch.float32).contiguous()
     nv = n_valid.to(torch.int32).contiguous()
     if j0h.shape != (N_HALF, C, T) or zsh.shape != (N_HALF, C, T):
         raise ValueError("banded kernels take (>=5, C, T) window tables")
-    return coords, f, nrhs, j0h, zsh, nv
+    return xyz, f, nrhs, j0h, zsh, nv
 
 
 def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
@@ -331,8 +331,9 @@ def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
     if (f_cells is None) != (mode == MODE_BUILD):
         raise ValueError("banded kernels take right-hand sides unless they "
                          "only build")
-    coords, f, nrhs, j0h, zsh, nv = _band_operands(bins, spec, j0, n_valid,
-                                                   zsh, f_cells)
+    xyz, f, nrhs, j0h, zsh, nv = _band_operands(bins, spec, j0, n_valid,
+                                                zsh, f_cells)
+    mask = bins.mask.to(torch.float32).contiguous()
     ncx, ncy, _ = spec.bins.n_cells
     C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
     dev = bins.px.device
@@ -344,13 +345,14 @@ def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
     Lf = [float(np.float32(x)) for x in L]
     p = kernels.ptr
     rc = kernels.library().pse_banded(
-        mode, nrhs, *(p(t) for t in coords), p(f), p(j0h), p(zsh), p(nv),
+        mode, nrhs, *(p(t) for t in xyz), p(mask), p(f), p(j0h), p(zsh),
+        p(nv),
         p(cheb_dev), cheb.degree + 1, float(np.float32(cheb.mid)),
         float(np.float32(float(ewald_cut) ** 2)),
         float(np.float32(float(ewald_dr) ** 2)),
         ncx, ncy, S, R, W, *Lf, float(np.float32(tilt_xy)),
         int(a_dtype == torch.bfloat16), p(blocks), p(uo),
-        kernels.stream_of(coords[0]),
+        kernels.stream_of(mask),
     )
     return blocks, uo, rc
 
@@ -359,8 +361,8 @@ def _launch_matvec(blocks, bins: CellBins, tilt_xy, spec: BandSpec, L, j0,
                    n_valid, zsh, f_cells):
     """One launch of csrc/banded_matvec.cu on the stored ``blocks``;
     returns (uo (C, 9, 3 nrhs, S), rc)."""
-    coords, f, nrhs, j0h, zsh, nv = _band_operands(bins, spec, j0, n_valid,
-                                                   zsh, f_cells)
+    xyz, f, nrhs, j0h, zsh, nv = _band_operands(bins, spec, j0, n_valid,
+                                                zsh, f_cells)
     ncx, ncy, _ = spec.bins.n_cells
     C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
     a_dtype = getattr(torch, spec.block_dtype)
@@ -372,10 +374,10 @@ def _launch_matvec(blocks, bins: CellBins, tilt_xy, spec: BandSpec, L, j0,
     Lf = [float(np.float32(x)) for x in L]
     p = kernels.ptr
     rc = kernels.library().pse_banded_matvec(
-        nrhs, *(p(t) for t in coords[:3]), p(f), p(j0h), p(zsh), p(nv),
+        nrhs, *(p(t) for t in xyz), p(f), p(j0h), p(zsh), p(nv),
         ncx, ncy, S, R, W, *Lf, float(np.float32(tilt_xy)),
         int(a_dtype == torch.bfloat16), p(blocks), p(uo),
-        kernels.stream_of(coords[0]),
+        kernels.stream_of(xyz[0]),
     )
     return uo, rc
 
