@@ -1,35 +1,44 @@
 #!/usr/bin/env python3
-"""A/B timing of the far-field kernels (csrc/spread.cu, csrc/contract.cu)
-and of the banded matvec (csrc/banded_matvec.cu) on one CUDA device, at
-chip_smoke.py's main-path shapes.
+"""A/B timing of the port's kernels against another checkout's, on one CUDA
+device, at chip_smoke.py's main-path shapes (N = 100k, phi = 0.45, tilt 0.3).
 
-    python3 pse_tpu_torch/ab_far.py [--other DIR] [--only far|matvec]
+    python3 pse_tpu_torch/ab.py [--other DIR] [--contract]
 
-Far field: times ``spread_moments_kernel`` and ``contract_col_kernel``
-(tilt 0.3, the default bfloat16 factors) with this checkout's kernel
-library and, with ``--other``, with the library of another checkout
-(e.g. the parent unpacked by ``git archive`` into the gitignored
-``scratch_tree/``), whose far-field C entry points take the same
-arguments.  Also times the library yardsticks, ``torch.bmm`` of wxy with a
-pre-built X (the spread's product) and of the pre-gathered windows with
-wxy (the contract's H).
+``--other DIR`` is the root of another checkout of the port (e.g. the
+parent commit unpacked by ``git archive`` into the gitignored
+``scratch_tree/``).  Its ``pse_tpu_torch`` is imported under another name,
+``pse_tpu_torch_other``, so its own wrappers and kernels (built into its own
+tree) run as they are there, on this checkout's operands.  Without it, this
+checkout is timed alone.
 
-Matvec: times ``matvec_banded`` (tilt 0.3, one right-hand side, the
-default bfloat16 blocks) of this checkout and, with ``--other``, the other
-checkout's own ``matvec_banded``, its package imported under another name,
-so that its wrapper and kernel run as they are there.  Both apply the same
-stored A.  Each is timed as the wrapper (with its torch work on the
-kernel's planes) and as the kernel launch alone.  The kernels' raw planes
-and the wrappers' u are compared between the two checkouts (max |diff|,
-bitwise equality) at tilts 0 and 0.3, one and two right-hand sides,
-bfloat16 and float32 blocks.
+Far field: ``spread_moments_kernel`` and ``contract_col_kernel`` (the
+default bfloat16 factors), held against their plain versions and a rerun,
+with the library yardsticks ``torch.bmm`` of wxy with a pre-built X (the
+spread's product) and of the pre-gathered windows with wxy (the contract's
+H).
 
-The two sides run in alternating rounds in the order other, this, this,
-other, each call timed by CUDA events around a loop of calls (as
-chip_smoke.py times them) and by replaying a CUDA graph of the same calls
-(the device time alone, without the host's work).  Each side's results are
-held against the plain versions (max |diff| / max |plain|) and against a
-rerun (bitwise).  Prints one JSON line.
+Banded matvec: ``matvec_banded`` (one right-hand side, the default
+bfloat16 blocks), timed as the wrapper (with its torch work on the kernel's
+planes) and as the kernel launch alone.  Both checkouts apply the same
+stored A; their raw planes and u are compared (max |diff|, bitwise
+equality) at tilts 0 and 0.3, one and two right-hand sides, bfloat16 and
+float32 blocks.  The bounds count the A rows of the non-empty tiles (those
+the kernel reads) and all of A.
+
+build_mv: ``build_mv_banded`` with one right-hand side.  With
+``--contract`` a third library is built whose banded.cu rounds with plain
+(contractible) arithmetic in place of its explicit ``__fmul_rn``,
+``__fadd_rn`` and ``__fsub_rn``, which nvcc contracts into fused
+multiply-adds; it is timed beside the others, and this checkout's float32
+build and the contracted one are held against the plain build (max |diff|
+/ max |plain|) at the main path's shapes and at the small configurations
+of tests/test_torch_cuda.py.
+
+The sides run in alternating rounds in the order other, this, this, other
+(then contract, contract), each call timed by CUDA events around a loop of
+calls (as chip_smoke.py times them) and by replaying a CUDA graph of the
+same calls (the device time alone, without the host's work).  Prints one
+JSON line.
 """
 
 from __future__ import annotations
@@ -38,8 +47,10 @@ import argparse
 import importlib
 import importlib.util
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import numpy as np
@@ -47,6 +58,18 @@ import numpy as np
 ROOT = Path(__file__).resolve().parents[1]
 N, PHI, XI, ERROR, TILT = 100_000, 0.45, 0.5, 1e-3, 0.3
 ROUNDS, REPS = 5, 20
+# (n, L, tilt, window) of test_two_rhs_and_build_only_banded_kernels
+SMALL = ((1080, 24.0, 0.0, None), (5300, 40.0, 0.3, None),
+         (5300, 40.0, 0.1, 256))
+ROUNDINGS = {"__fmul_rn(": "ab_mul(", "__fadd_rn(": "ab_add(",
+             "__fsub_rn(": "ab_sub("}
+PLAIN_OPS = (
+    "__device__ __forceinline__ float ab_mul(float a, float b) "
+    "{ return a * b; }\n"
+    "__device__ __forceinline__ float ab_add(float a, float b) "
+    "{ return a + b; }\n"
+    "__device__ __forceinline__ float ab_sub(float a, float b) "
+    "{ return a - b; }\n")
 
 
 def load_other(root: Path):
@@ -62,16 +85,63 @@ def load_other(root: Path):
     return mod
 
 
+def contract_library(kernels, where: Path):
+    """Load a second kernel library whose banded.cu rounds with plain
+    (contractible) arithmetic; returns it and leaves the first loaded."""
+    first = kernels.library()
+    csrc = kernels.CSRC
+    shutil.copytree(csrc, where)
+    src = (where / "banded.cu").read_text()
+    for old, new in ROUNDINGS.items():
+        if old not in src:
+            raise RuntimeError(f"banded.cu has no {old}")
+        src = src.replace(old, new)
+    src = src.replace("namespace {", PLAIN_OPS + "namespace {", 1)
+    (where / "banded.cu").write_text(src)
+    kernels.CSRC, kernels._lib = where, None
+    second = kernels.library()
+    kernels.CSRC, kernels._lib = csrc, first
+    return second
+
+
+def operands(pos, n, L, tilt, window=None, dtype=None):
+    """The banded wrappers' arguments at (n, L, tilt), a random f and the
+    self mobility."""
+    import torch
+
+    from pse_tpu_torch import integrator, make_params
+    from pse_tpu_torch.box import make_box
+    from pse_tpu_torch.cellbins import bin_columns, vec_to_cells
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+
+    p = make_params(xi=XI, error=ERROR, L=L)
+    cfg = integrator.make_config(p, n, engine="banded", has_forces=False,
+                                 device="cuda")
+    bs = cfg.band_spec
+    if window is not None:
+        bs = bs._replace(window=window)
+    if dtype is not None:
+        bs = bs._replace(block_dtype=dtype)
+    box = make_box(p.L, tilt)
+    bins = bin_columns(pos, box, bs.bins)
+    j0, nv, _, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    f = vec_to_cells(bins, bs.bins,
+                     torch.randn(pos.shape, generator=g, device="cuda"))
+    return (bins, tilt, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
+            zsh), f, p.self_mobility
+
+
 def kernel_launch(bdn, blocks, args, f):
     """The matvec kernel launch alone (its raw planes) of a checkout's
-    banded_nearfield module; before its own source file the matvec was a
-    mode of csrc/banded.cu."""
+    banded_nearfield module; in checkouts where the matvec is a mode of
+    csrc/banded.cu, through that launcher."""
     bins, tilt, bs, cheb, L, cut, dr, j0, nv, zsh = args
     if hasattr(bdn, "_launch_matvec"):
         def run():
-            uo, rc = bdn._launch_matvec(blocks, bins, tilt, bs, L, j0, nv,
-                                        zsh, f)
-            return uo, rc
+            return bdn._launch_matvec(blocks, bins, tilt, bs, L, j0, nv, zsh,
+                                      f)
     else:
         def run():
             _, uo, rc = bdn._launch_banded(bdn.MODE_MATVEC, *args, f,
@@ -87,11 +157,11 @@ def kernel_launch(bdn, blocks, args, f):
 
 
 def ab_matvec(sides, order, pos, L):
-    """The matvec A/B of main(): timings, the checks, and the two bounds."""
+    """The matvec A/B: the checks between and per side, timings, bounds."""
     import torch
 
-    from chip_smoke import HBM_BYTES_PER_S, cuda_ms, graph_ms, rel_max
-    from pse_tpu_torch.ab_build_mv import operands
+    from chip_smoke import HBM_BYTES_PER_S, PEAK_FLOPS, cuda_ms, graph_ms
+    from chip_smoke import rel_max
     from pse_tpu_torch.ops import banded_nearfield as bdn
 
     out = {"checks": {}, "between": {}}
@@ -151,10 +221,10 @@ def ab_matvec(sides, order, pos, L):
     pairs = int((blocks[:, :, 0] != 0).sum())
     # besides A: slot coordinates and f read, u written, j0 + zsh tables
     other_bytes = 4 * C * S * 4 + 2 * 5 * C * T * 4 + 2 * 3 * C * S * 4
-    ops = 40 * pairs / 67e12
-    bound = {k: 1e3 * max((a + other_bytes) / HBM_BYTES_PER_S, ops)
-             for k, a in (("full_A", C * S * row_bytes),
-                          ("nonempty_tiles", live_rows * row_bytes))}
+    t_ops = 40 * pairs / PEAK_FLOPS["float32"]
+    bound = {k: 1e3 * max((a + other_bytes) / HBM_BYTES_PER_S, t_ops)
+             for k, a in (("nonempty_tiles", live_rows * row_bytes),
+                          ("full_A", C * S * row_bytes))}
     out.update({
         "shapes": {"C": C, "S": S, "R": R, "W": W, "T": T,
                    "block_dtype": bs.block_dtype, "tilt": TILT, "nrhs": 1,
@@ -166,8 +236,65 @@ def ab_matvec(sides, order, pos, L):
     return out
 
 
+def build_residual(args):
+    """max |A - plain| / max |plain| of the float32 build, both planes."""
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+
+    a = (*args[:2], args[2]._replace(block_dtype="float32"), *args[3:])
+    A = bdn.build_banded_blocks(*a)
+    plain = bdn.build_banded_blocks_reference(*a)
+    return max(float((A[:, :, k] - plain[:, :, k]).abs().max()
+                     / plain[:, :, k].abs().max()) for k in range(2))
+
+
+def ab_build_mv(sides, order, pos, L, contract=None):
+    """The one-RHS build_mv A/B; ``contract``: the library with plain
+    arithmetic in banded.cu, run through this checkout's wrapper."""
+    import torch
+
+    from chip_smoke import cuda_ms, graph_ms
+    from pse_tpu_torch import kernels
+
+    args, f, self_mob = operands(pos, N, L, TILT)
+    runs = {k: (m, None) for k, m in sides.items()}
+    if contract is not None:
+        runs["contract"] = (sides["this"], contract)
+        order = order + ["contract", "contract"]
+    first = kernels.library()
+    times = {k: {"events": [], "graph": []} for k in runs}
+    for _ in range(ROUNDS):
+        for k in order:
+            m, lib = runs[k]
+            kernels._lib = lib or first
+            call = (lambda m=m: m.build_mv_banded(*args, f, self_mob))
+            times[k]["events"].append(cuda_ms(call, REPS))
+            times[k]["graph"].append(graph_ms(call, REPS))
+    kernels._lib = first
+    out = {"ms": times,
+           "median_ms": {k: {n: float(np.median(t)) for n, t in per.items()}
+                         for k, per in times.items()}}
+    if contract is not None:
+        res = {}
+        for k, lib in (("this", first), ("contract", contract)):
+            kernels._lib = lib
+            r = {"main tilt=0.0": build_residual(
+                     operands(pos, N, L, 0.0)[0]),
+                 f"main tilt={TILT}": build_residual(args)}
+            for n, Ls, tilt, window in SMALL:
+                rng = np.random.default_rng(0)
+                p_small = torch.as_tensor(rng.uniform(
+                    -Ls / 2, Ls / 2, size=(n, 3)).astype(np.float32),
+                    device="cuda")
+                r[f"{n}/{Ls}/{tilt}/W={window}"] = build_residual(
+                    operands(p_small, n, Ls, tilt, window)[0])
+            res[k] = r
+        kernels._lib = first
+        out["f32_build_vs_plain"] = res
+    return out
+
+
 def ab_far_field(libs, order, pos, L):
-    """The far-field A/B of main(): timings, checks and yardsticks."""
+    """The far-field A/B: timings, checks and yardsticks."""
     import torch
 
     from chip_smoke import cuda_ms, graph_ms, rel_max
@@ -235,13 +362,14 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", default=None,
                     help="root of another checkout whose kernels to time")
-    ap.add_argument("--only", choices=("far", "matvec"), default=None)
+    ap.add_argument("--contract", action="store_true",
+                    help="also time build_mv with contracted arithmetic")
     a = ap.parse_args()
     sys.path[0] = str(ROOT)          # not this script's own directory
     import torch
 
     if not torch.cuda.is_available():
-        print("ab_far: no CUDA device", file=sys.stderr)
+        print("ab: no CUDA device", file=sys.stderr)
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     from chip_smoke import make_positions
@@ -261,10 +389,15 @@ def main() -> int:
         order = ["other", "this", "this", "other"]
     result = {"other": a.other, "order": order, "rounds": ROUNDS,
               "reps": REPS}
-    if a.only != "matvec":
-        result["far"] = ab_far_field(libs, order, pos, L)
-    if a.only != "far":
-        result["matvec"] = ab_matvec(sides, order, pos, L)
+    result["far"] = ab_far_field(libs, order, pos, L)
+    result["matvec"] = ab_matvec(sides, order, pos, L)
+    tmp = tempfile.mkdtemp(prefix="ab_contract_")
+    try:
+        contract = (contract_library(kernels, Path(tmp) / "csrc")
+                    if a.contract else None)
+        result["build_mv"] = ab_build_mv(sides, order, pos, L, contract)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     result["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True
