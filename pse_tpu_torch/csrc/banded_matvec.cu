@@ -37,9 +37,10 @@
 //     added into the rank accumulator in tile order by one thread per
 //     rank.  No float atomics: reruns are bitwise equal;
 //   * shared memory grows with S only by the rank accumulator, 3 NRHS
-//     (S + W) floats, beside 50-130 KB of fixed size: one RHS launches at
-//     S up to 11,136 or more, two up to 4,352 or more (W = 64, R = 32),
-//     above build_mv's limits in banded.cu (5,632 and 3,408 at most);
+//     (S + W) floats, beside at most 81 KB (one RHS) or 121 KB (two) of
+//     fixed size: one RHS launches at S up to 12,128 or more, two up to
+//     4,384 or more (W = 64, R = 32), above build_mv's limits in banded.cu
+//     (5,632 and 3,408 at most);
 //   * the blocks with a transposed half run first and the lighter h = 0
 //     blocks last, where they fill the grid's last wave (1080 blocks, two
 //     per SM at the bench shapes).
