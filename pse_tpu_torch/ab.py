@@ -2,7 +2,7 @@
 """A/B timing of the port's kernels against another checkout's, on one CUDA
 device, at chip_smoke.py's main-path shapes (N = 100k, phi = 0.45, tilt 0.3).
 
-    python3 pse_tpu_torch/ab.py [--other DIR] [--contract]
+    python3 pse_tpu_torch/ab.py [--other DIR] [--contract] [--only PART]
 
 ``--other DIR`` is the root of another checkout of the port (e.g. the
 parent commit unpacked by ``git archive`` into the gitignored
@@ -25,14 +25,22 @@ equality) at tilts 0 and 0.3, one and two right-hand sides, bfloat16 and
 float32 blocks.  The bounds count the A rows of the non-empty tiles (those
 the kernel reads) and all of A.
 
-build_mv: ``build_mv_banded`` with one right-hand side.  With
-``--contract`` a third library is built whose banded.cu rounds with plain
-(contractible) arithmetic in place of its explicit ``__fmul_rn``,
-``__fadd_rn`` and ``__fsub_rn``, which nvcc contracts into fused
-multiply-adds; it is timed beside the others, and this checkout's float32
-build and the contracted one are held against the plain build (max |diff|
-/ max |plain|) at the main path's shapes and at the small configurations
-of tests/test_torch_cuda.py.
+Build: ``build_mv_banded`` at one and two right-hand sides and
+``build_banded_blocks`` (the build alone).  At tilts 0 and 0.3, bfloat16
+and float32 blocks, one and two right-hand sides, the two checkouts' A,
+build-alone A, raw planes and u are compared (max |diff|, bitwise
+equality), and each side's build-alone A against its build_mv A and its
+build_mv u against its own matvec's u on that A.  Each of the three is
+timed at tilt 0.3, bfloat16, as the wrapper by CUDA events and as the
+kernel launch alone by CUDA-graph replay.  With ``--contract`` a third
+library is built whose build rounds with plain (contractible) arithmetic
+in place of its explicit ``__fmul_rn``, ``__fadd_rn`` and ``__fsub_rn``,
+which nvcc contracts into fused multiply-adds; it is timed beside the
+others, and this checkout's float32 build and the contracted one are held
+against the plain build (max |diff| / max |plain|) at the main path's
+shapes and at the small configurations of tests/test_torch_cuda.py.
+
+``--only far|matvec|build`` (repeatable) runs only those parts.
 
 The sides run in alternating rounds in the order other, this, this, other
 (then contract, contract), each call timed by CUDA events around a loop of
@@ -86,18 +94,24 @@ def load_other(root: Path):
 
 
 def contract_library(kernels, where: Path):
-    """Load a second kernel library whose banded.cu rounds with plain
-    (contractible) arithmetic; returns it and leaves the first loaded."""
+    """Load a second kernel library whose build (the source that defines
+    ``pse_banded``) rounds with plain (contractible) arithmetic; returns it
+    and leaves the first loaded."""
     first = kernels.library()
     csrc = kernels.CSRC
     shutil.copytree(csrc, where)
-    src = (where / "banded.cu").read_text()
+    holders = [n for n in kernels.SOURCES
+               if 'extern "C" int pse_banded(' in (where / n).read_text()]
+    if len(holders) != 1:
+        raise RuntimeError(f"no single source defines pse_banded: {holders}")
+    path = where / holders[0]
+    src = path.read_text()
     for old, new in ROUNDINGS.items():
         if old not in src:
-            raise RuntimeError(f"banded.cu has no {old}")
+            raise RuntimeError(f"{holders[0]} has no {old}")
         src = src.replace(old, new)
     src = src.replace("namespace {", PLAIN_OPS + "namespace {", 1)
-    (where / "banded.cu").write_text(src)
+    path.write_text(src)
     kernels.CSRC, kernels._lib = where, None
     second = kernels.library()
     kernels.CSRC, kernels._lib = csrc, first
@@ -247,32 +261,107 @@ def build_residual(args):
                      / plain[:, :, k].abs().max()) for k in range(2))
 
 
+def build_launch(bdn, args, f=None):
+    """The build kernel launch alone of a checkout's banded_nearfield module:
+    build_mv on the right-hand sides ``f``, or the build alone without;
+    the launch returns (blocks, raw planes or None)."""
+    mode = bdn.MODE_BUILD if f is None else bdn.MODE_BUILD_MV
+
+    def launch():
+        blocks, uo, rc = bdn._launch_banded(mode, *args, f)
+        if rc:
+            raise RuntimeError(f"build launch failed: CUDA error {rc}")
+        return blocks, uo
+    return launch
+
+
 def ab_build_mv(sides, order, pos, L, contract=None):
-    """The one-RHS build_mv A/B; ``contract``: the library with plain
-    arithmetic in banded.cu, run through this checkout's wrapper."""
+    """The build A/B: build_mv at one and two right-hand sides and the
+    build alone, per side against the other side's (A, raw planes, u) and
+    against its own matvec, at tilts 0 and 0.3, bf16 and f32 blocks;
+    timings at tilt 0.3, bf16.  ``contract``: the library with plain
+    arithmetic in the build's roundings, run through this checkout's
+    wrapper."""
     import torch
 
-    from chip_smoke import cuda_ms, graph_ms
+    from chip_smoke import cuda_ms, graph_ms, rel_max
     from pse_tpu_torch import kernels
 
+    out = {"checks": {}, "between": {}}
+    for tilt in (0.0, TILT):
+        for dtype in ("bfloat16", "float32"):
+            args, f, self_mob = operands(pos, N, L, tilt, dtype=dtype)
+            g = torch.Generator(device="cuda")
+            g.manual_seed(8)
+            f2 = torch.cat([f, torch.randn(f.shape, generator=g,
+                                           device="cuda") * (f != 0)])
+            alone = {k: build_launch(m, args)()[0] for k, m in sides.items()}
+            for nrhs, rhs in ((1, f), (2, f2)):
+                key = f"tilt={tilt} {dtype} nrhs={nrhs}"
+                got = {}
+                for k, m in sides.items():
+                    blocks, uo = build_launch(m, args, rhs)()
+                    _, u = m.build_mv_banded(*args, rhs, self_mob)
+                    u_m = m.matvec_banded(blocks, *args, rhs, self_mob)
+                    got[k] = (blocks, uo, u)
+                    out["checks"].setdefault(k, {})[key] = {
+                        "build_alone_A_bitwise": bool(torch.equal(
+                            alone[k], blocks)),
+                        "u_vs_matvec_u_rel_max": rel_max(u, u_m)[0],
+                        "u_bitwise_matvec_u": bool(torch.equal(u, u_m)),
+                        "rerun_bitwise": bool(torch.equal(
+                            m.build_mv_banded(*args, rhs, self_mob)[1], u))}
+                    del u_m
+                if "other" in got:
+                    (a_a, uo_a, u_a), (a_b, uo_b, u_b) = (got["this"],
+                                                          got["other"])
+                    out["between"][key] = {
+                        "A_max_abs_diff": float(
+                            (a_a.float() - a_b.float()).abs().max()),
+                        "A_bitwise": bool(torch.equal(a_a, a_b)),
+                        "build_alone_A_bitwise": bool(torch.equal(
+                            alone["this"], alone["other"])),
+                        "planes_max_abs_diff": rel_max(uo_a, uo_b)[1],
+                        "planes_bitwise": bool(torch.equal(uo_a, uo_b)),
+                        "u_max_abs_diff": rel_max(u_a, u_b)[1],
+                        "u_rel_max": rel_max(u_a, u_b)[0],
+                        "u_bitwise": bool(torch.equal(u_a, u_b))}
+                del got
+            del alone
+
     args, f, self_mob = operands(pos, N, L, TILT)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(8)
+    f2 = torch.cat([f, torch.randn(f.shape, generator=g, device="cuda")
+                    * (f != 0)])
     runs = {k: (m, None) for k, m in sides.items()}
     if contract is not None:
         runs["contract"] = (sides["this"], contract)
         order = order + ["contract", "contract"]
     first = kernels.library()
-    times = {k: {"events": [], "graph": []} for k in runs}
+    names = ("mv1", "mv2", "build")
+    times = {k: {f"{n}_{how}": [] for n in names
+                 for how in ("wrapper_events", "kernel_graph")}
+             for k in runs}
     for _ in range(ROUNDS):
         for k in order:
             m, lib = runs[k]
             kernels._lib = lib or first
-            call = (lambda m=m: m.build_mv_banded(*args, f, self_mob))
-            times[k]["events"].append(cuda_ms(call, REPS))
-            times[k]["graph"].append(graph_ms(call, REPS))
+            calls = {
+                "mv1": (lambda m=m: m.build_mv_banded(*args, f, self_mob),
+                        build_launch(m, args, f)),
+                "mv2": (lambda m=m: m.build_mv_banded(*args, f2, self_mob),
+                        build_launch(m, args, f2)),
+                "build": (lambda m=m: m.build_banded_blocks(*args),
+                          build_launch(m, args))}
+            for n, (wrapper, kernel) in calls.items():
+                times[k][f"{n}_wrapper_events"].append(cuda_ms(wrapper, REPS))
+                times[k][f"{n}_kernel_graph"].append(graph_ms(kernel, REPS))
     kernels._lib = first
-    out = {"ms": times,
-           "median_ms": {k: {n: float(np.median(t)) for n, t in per.items()}
-                         for k, per in times.items()}}
+    out.update({"ms": times,
+                "median_ms": {k: {n: float(np.median(t))
+                                  for n, t in per.items()}
+                              for k, per in times.items()}})
     if contract is not None:
         res = {}
         for k, lib in (("this", first), ("contract", contract)):
@@ -364,7 +453,10 @@ def main() -> int:
                     help="root of another checkout whose kernels to time")
     ap.add_argument("--contract", action="store_true",
                     help="also time build_mv with contracted arithmetic")
+    ap.add_argument("--only", choices=("far", "matvec", "build"),
+                    action="append", help="run only these parts (repeatable)")
     a = ap.parse_args()
+    parts = set(a.only or ("far", "matvec", "build"))
     sys.path[0] = str(ROOT)          # not this script's own directory
     import torch
 
@@ -389,15 +481,18 @@ def main() -> int:
         order = ["other", "this", "this", "other"]
     result = {"other": a.other, "order": order, "rounds": ROUNDS,
               "reps": REPS}
-    result["far"] = ab_far_field(libs, order, pos, L)
-    result["matvec"] = ab_matvec(sides, order, pos, L)
-    tmp = tempfile.mkdtemp(prefix="ab_contract_")
-    try:
-        contract = (contract_library(kernels, Path(tmp) / "csrc")
-                    if a.contract else None)
-        result["build_mv"] = ab_build_mv(sides, order, pos, L, contract)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    if "far" in parts:
+        result["far"] = ab_far_field(libs, order, pos, L)
+    if "matvec" in parts:
+        result["matvec"] = ab_matvec(sides, order, pos, L)
+    if "build" in parts:
+        tmp = tempfile.mkdtemp(prefix="ab_contract_")
+        try:
+            contract = (contract_library(kernels, Path(tmp) / "csrc")
+                        if a.contract else None)
+            result["build"] = ab_build_mv(sides, order, pos, L, contract)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
     result["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True

@@ -156,7 +156,26 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
   const int nc = b.n_coef;
   float* wpart = part + warp * NF * W;
 
-  for (int t = 0; t < T; ++t) {
+  // tiles past ceil(n_valid[c] / R) hold no occupied row: their A rows are
+  // zero (16-byte stores) and their forward rows zero, and they add nothing
+  // to the transposed sums
+  const int Tv = (b.n_valid[c] + R - 1) / R;
+  {
+    const int i0 = Tv * R, rows = S - i0;
+    const int chunks = W * (int)sizeof(AT) / 16;
+    for (int e = tid; e < 2 * rows * chunks; e += THREADS) {
+      const int r = e / chunks, pl = r / rows, i = i0 + r % rows;
+      reinterpret_cast<uint4*>(A + a_im + (long long)pl * S * a_row +
+                               (long long)i * a_row + (long long)h * W)
+          [e % chunks] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    float* fwd = b.uo + ((long long)c * 9 + h) * NF * S;
+    for (int s = i0 + tid; s < S; s += THREADS)
+#pragma unroll
+      for (int k = 0; k < NF; ++k) fwd[k * S + s] = 0.f;
+  }
+
+  for (int t = 0; t < Tv; ++t) {
     const long long wt = ((long long)h * C + c) * T + t;
     const int j0 = b.j0[wt];
     const float zs = b.zsh[wt];
@@ -328,6 +347,7 @@ extern "C" int pse_banded(int mode, int nrhs, const float* px, const float* py,
                           float Lx, float Ly, float Lz, float tilt, int a_bf16,
                           void* A, float* uo, cudaStream_t stream) {
   if (R % WARPS != 0 || R > WARPS * MAX_RPW || S % R != 0 || W % 32 != 0 ||
+      reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
       mode < MODE_BUILD_MV || mode > MODE_BUILD)
     return (int)cudaErrorInvalidValue;
   Band b{px,  py,   pz,   mask, f,   j0,  zsh, n_valid, cheb, n_coef, mid,
