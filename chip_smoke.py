@@ -35,9 +35,10 @@ Phases (each failure makes the script exit non-zero without the result line):
             float32 matvec_banded_reference, two right-hand sides <= 1e-4
             against two one-RHS launches; build_banded_blocks bitwise
             build_mv's A and <= 1e-6 (float32) / 2^-8 (bfloat16) of the
-            float32 plain build; contract <= 1e-5 (float32) and <= 5e-3
-            (bfloat16); spread <= 1e-5 (float32) and <= 1e-4 (bfloat16) (max
-            |diff| / max |plain|); build_mv u vs matvec u <= 1e-6; matvec
+            float32 plain build, the float32 build bitwise; contract <= 1e-5
+            (float32) and <= 5e-3 (bfloat16); spread <= 1e-5 (float32) and
+            <= 1e-4 (bfloat16) (max |diff| / max |plain|); build_mv u vs
+            matvec u <= 1e-6 and bitwise (one accumulation code); matvec
             (one and two right-hand sides), spread and contract reruns
             bitwise equal;
   [timing]  CUDA-event times of each kernel wrapper and its plain version,
@@ -45,10 +46,12 @@ Phases (each failure makes the script exit non-zero without the result line):
             operations at the peak rate of their type), and torch.bmm as the
             library yardstick of the spread (wxy with a pre-built X) and of
             the contract (the pre-gathered windows with wxy), printed as one
-            JSON line; the matvec also as its kernel launch alone (CUDA-graph
-            replay, without the wrapper's torch work on its planes); its
-            bound counts the A rows of the non-empty tiles, the ones the
-            kernel reads, and the bound of all of A is kept beside it;
+            JSON line; the banded kernels also as their kernel launch alone
+            (CUDA-graph replay, without the wrapper's torch work): the
+            matvec, build_mv at two right-hand sides (one beside it) and the
+            build alone; the matvec's bound counts the A rows of the
+            non-empty tiles, the ones the kernel reads, and the bound of all
+            of A is kept beside it;
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -602,6 +605,10 @@ def phase_kernels(ph, sim, results):
                          f"(bitwise {bool(torch.equal(two, one))})", r, 1e-4)
             ph.check(f"build_mv u vs matvec u {dtype} tilt={tilt}",
                      rel_max(u_m, u_b)[0], 1e-6)
+            # one accumulation code: build_mv applies the A it stores as the
+            # matvec applies it, in the same order
+            ph.check(f"build_mv u vs matvec u {dtype} tilt={tilt} "
+                     "(mismatched elements)", int((u_m != u_b).sum()), 0)
             for fk, got, nrhs in ((f, u_m, 1), (torch.cat([f, f2]), u_mm, 2)):
                 _check_rerun(ph, f"matvec {nrhs}-RHS {dtype} tilt={tilt}",
                              got, lambda fk=fk: bdn.matvec_banded(
@@ -617,6 +624,10 @@ def phase_kernels(ph, sim, results):
                       for k in range(2))
             ph.check(f"build_banded_blocks vs plain build {dtype} "
                      f"tilt={tilt}", r_a, a_bound)
+            if dtype == "float32":
+                ph.check(f"build_banded_blocks vs plain build {dtype} "
+                         f"tilt={tilt} (mismatched elements)",
+                         int((A != plain).sum()), 0)
             if dtype == config.band_spec.block_dtype:
                 results["build_mv_banded"]["err"].append(d_b2)
                 results["matvec_banded"]["err"].append(d_m)
@@ -734,10 +745,27 @@ def phase_timing(sim, results):
         ms=cuda_ms(lambda: bdn.build_banded_blocks(*args), 20),
         plain_ms=cuda_ms(lambda: bdn.build_banded_blocks_reference(*args), 3))
     bound("build_banded_blocks", a_bytes + geo, ops_build)
+
+    def build_kernel(mode, rhs=None):
+        def launch():
+            A, _, rc = bdn._launch_banded(mode, *args, rhs)
+            kernels.check("build", rc)
+            return A
+        return launch
+    mv, bb = results["build_mv_banded"], results["build_banded_blocks"]
+    mv["kernel_ms"] = graph_ms(build_kernel(bdn.MODE_BUILD_MV, f12), 20)
+    mv["kernel_ms_1rhs"] = graph_ms(build_kernel(bdn.MODE_BUILD_MV, f), 20)
+    bb["kernel_ms"] = graph_ms(build_kernel(bdn.MODE_BUILD), 20)
     print(f"  A: {a_bytes / 1e6:.1f} MB, valid pairs {pairs}; build_mv one "
-          f"RHS {ms1:.4f} ms, two {results['build_mv_banded']['ms']:.4f} ms; "
-          f"matvec one RHS {results['matvec_banded']['ms']:.4f} ms, two "
+          f"RHS {ms1:.4f} ms, two {mv['ms']:.4f} ms (CUDA events); matvec "
+          f"one RHS {results['matvec_banded']['ms']:.4f} ms, two "
           f"{ms_mm:.4f} ms")
+    print(f"  kernels alone (CUDA-graph replay): build_mv two RHS "
+          f"{mv['kernel_ms']:.4f} ms, one RHS {mv['kernel_ms_1rhs']:.4f} ms; "
+          f"bound {mv['bound_ms']:.4f} ms by {mv['bound_by']}, the two-RHS "
+          f"kernel at {100 * mv['bound_ms'] / mv['kernel_ms']:.1f} %; build "
+          f"alone {bb['kernel_ms']:.4f} ms, bound {bb['bound_ms']:.4f} ms, at "
+          f"{100 * bb['bound_ms'] / bb['kernel_ms']:.1f} %")
     del blocks
 
     ff = cb.bin_particles(pos, box, cs.bins)
@@ -801,7 +829,7 @@ KERNELS = (
     ("fill_cells", "pse_tpu_torch/csrc/fill.cu", "pse_tpu/cellbins.py:123"),
     ("build_mv_banded", "pse_tpu_torch/csrc/banded.cu",
      "pse_tpu/ops/banded_nearfield.py:1472"),
-    ("matvec_banded", "pse_tpu_torch/csrc/banded_matvec.cu",
+    ("matvec_banded", "pse_tpu_torch/csrc/banded.cu",
      "pse_tpu/ops/banded_nearfield.py:1147"),
     ("contract_col", "pse_tpu_torch/csrc/contract.cu",
      "pse_tpu/ops/column_farfield.py:307"),
@@ -861,7 +889,8 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
-            **{k: r[k] for k in ("kernel_ms", "bound_full_A_ms") if k in r},
+            **{k: r[k] for k in ("kernel_ms", "kernel_ms_1rhs",
+                                 "bound_full_A_ms") if k in r},
         })
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "

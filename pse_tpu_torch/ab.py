@@ -471,6 +471,10 @@ def main() -> int:
     pos, L = make_positions(N, PHI, seed=0)
     pos = torch.as_tensor(pos, device="cuda")
     libs = {"this": kernels.library()}
+    for line in kernels.BUILD_INFO.get("log", "").splitlines():
+        if "Function properties" in line or "registers" in line \
+                or "spill" in line:
+            print("ptxas " + line.strip(), file=sys.stderr)
     sides = {"this": bdn}
     order = ["this", "this"]
     if a.other:

@@ -1,22 +1,23 @@
-// Banded near-field mobility: the pair-coefficient build, alone or fused
-// with the first matvec for one or two right-hand sides (the matvec that
-// streams the stored coefficients back is banded_matvec.cu).
+// Banded near-field mobility on the H100: the pair-coefficient build, alone
+// or fused with the first matvec, and the matvec that streams the stored
+// coefficients back, for one or two right-hand sides, in one block code.
 //
-// Replaces two Pallas kernels of pse_tpu/ops/banded_nearfield.py:
+// Replaces three Pallas kernels of pse_tpu/ops/banded_nearfield.py:
+//   * `_matvec_kernel` (:1147, launched by `matvec_banded`, :1392): u =
+//     M_real f from one read of the stored A;
 //   * `_build_mv_kernel` (:1472, launched by `build_mv_banded`, :1693): build
 //     A = (imrr, bco/d^2) over the half stencil and apply it at once;
 //   * `_build_kernel` (:733, launched by `build_banded_blocks`, :894): the
-//     build alone (MODE_BUILD here, no right-hand side; the TPU kernel's
-//     second output, the prefolded coordinates pos_cyc, feeds only its MXU
-//     matvec and has no counterpart).
-// The fused matvec computes what `matvec_banded_reference` computes (that
-// module's plain version), with A rounded to the block dtype before it is
-// applied, as every later matvec applies it, so Lanczos sees one operator.
+//     build alone (no right-hand side; the TPU kernel's second output, the
+//     prefolded coordinates pos_cyc, feeds only its MXU matvec and has no
+//     counterpart).
 // The build writes the same A in every mode (its plain version is
-// `build_banded_blocks_reference`).  With NRHS = 2 (f (6, C, S), the forces
-// and the first Lanczos vector of a with-forces step) each A element is
-// built or read once and applied to both; each right-hand side is summed in
-// the order of a one-RHS launch.
+// `build_banded_blocks_reference`, which the float32 build equals bit for
+// bit); build_mv applies the A it has just rounded to the block dtype with
+// the matvec's own code, so its u is bitwise the matvec's u on that A and
+// Lanczos sees one operator.  With NRHS = 2 (f (6, C, S), the forces and
+// the first Lanczos vector of a with-forces step) each A element is built
+// or read once and applied to both right-hand sides.
 //
 // Semantics (one block per (column c, stored offset h), h in 0..4):
 //   * the neighbour column is c + (OX[h], OY[h]) on the periodic column grid;
@@ -27,44 +28,73 @@
 //     nv the neighbour's valid count; lanes w >= nv are masked;
 //   * the per-(offset, column, tile) z shift zsh is subtracted from the
 //     window z, so dz needs no per-pair minimum-image round;
-//   * valid pairs have dr^2 <= d^2 < rcut^2, both slots occupied, and are not
-//     the self pair (excluded at offset 0 only); the Chebyshev branch select
-//     is at r = 2a;
+//   * valid pairs have dr^2 <= d^2 < rcut^2, both slots occupied (slot masks
+//     are 0 or 1, the CellBins contract), and are not the self pair
+//     (excluded at offset 0 only); the Chebyshev branch select is at r = 2a;
 //   * the forward product u_i += F1 f_j + Bq d (d . f_j) goes to plane h of
 //     uo (C, 9, 3 NRHS, S); for h >= 1 the transposed product u_j += F1 f_i +
-//     Bq d (d . f_i) is summed by cyclic rank in shared memory over all tiles,
-//     folded to slots, and written to plane 4 + h at the OWN column; torch
-//     sums the forward planes and rolls the transposed ones onto their target
-//     columns (banded_nearfield._finish_u).
+//     Bq d (d . f_i) is summed by cyclic rank, folded to slots and written to
+//     plane 4 + h at the OWN column; torch sums the forward planes and rolls
+//     the transposed ones onto their target columns
+//     (banded_nearfield._finish_u).
 //
-// What bounds it on the H100: at bench scale (C = 216, S = 576, W = 128,
-// bf16) the build writes A, 318.5 MB, >= ~95 us at 3.35 TB/s (the build
-// alone moves nothing else of size).  The pair arithmetic (~80 M pairs,
-// ~40 flops each forward + transposed, plus a degree-8 Clenshaw pair in the
-// build) is of the same order on the CUDA cores.
-//
-// Design: 256 threads (8 warps) per block; lane w of a warp walks window
-// lanes w, w+32, ... (coalesced A and window reads) and the warp's rows are
-// warp, warp+8, ... (R/8 per warp, held in registers with their NRHS right-
-// hand sides and sums: MAX_RPW x 3 x NRHS of each).  Forward sums are
-// reduced across lanes with warp shuffles in a fixed order; transposed sums
-// go through a per-warp shared-memory partial and a fixed-order sum into the
-// rank accumulator.  No float atomics: every output element is written by
-// exactly one thread, so results are bitwise reproducible.  Geometry is f32
-// from the slot coordinates (the TPU kernel's bf16 hi/lo coordinate split and
-// prefolded coordinate array were MXU devices).  Simple and right first:
-// tensor cores, TMA and vector loads are later work.
+// What bounds it on the H100: A.  At bench scale (C = 216, S = 576, R = 32,
+// W = 128, bf16) A is 318.5 MB, >= 95 us at 3.35 TB/s, written by the build
+// and read by the matvec.  The pair arithmetic is of the same order on the
+// CUDA cores: ~25 float32 instructions per stored pair and right-hand side,
+// forward and transposed, over the ~66 M pairs of the non-empty tiles; the
+// geometry and validity test of each pair (~15); and for the ~5 M valid
+// pairs (nonzero A) the pair functions, a square root, two IEEE divisions
+// and two degree-8 Clenshaw recurrences rounded step by step (~90).  The
+// design:
+//   * tiles past ceil(n_valid[c] / R) hold no occupied row, so their A and
+//     f rows are zero: the matvec skips them, the build writes their A rows
+//     as zeros (16-byte stores), and their forward rows are written as zeros
+//     (~17 % of A at bench scale);
+//   * a thread owns LPT = 8 window lanes of one tile for all R rows: one
+//     16-byte load or store per A plane and row (two at float32), RG rows at
+//     a time; the lanes' window coordinates and f sit in registers, so the
+//     transposed sums stay in registers over the tile;
+//   * the build is a producer stage of the same loop: for RG rows it tests
+//     every pair, queues the d^2 of the valid ones in the tile group's
+//     scratch (a prefix sum over the group's threads), evaluates the pair
+//     functions over the queue with every thread of the group busy (a
+//     branch per pair would run the Clenshaw whenever any lane of the warp
+//     needs it, nearly always), reads the rounded coefficients back into the
+//     registers the matvec would have loaded, stores them, and applies them
+//     with the matvec's code;
+//   * G = W / 8 (rounded up to a power of two) threads cover a tile's
+//     lanes and THREADS / G tiles run at once; each thread writes its RG
+//     rows' forward partial sums to shared memory, and after a __syncwarp
+//     one thread per (row, component) sums the G partials in thread order
+//     (fewer shared-memory operations than a shuffle butterfly per row,
+//     which timed markedly slower);
+//   * the block stages the own rows (x, y, z, mask, f) of each pass of tiles
+//     in shared memory; each tile group loads its window (neighbour slot by
+//     rank, the wrap's z + Lz applied) from global memory in coalesced
+//     rows into its own scratch, from which a thread reads its lanes in
+//     16-byte loads; the same scratch then holds the group's row sums, its
+//     queue of valid pairs and its transposed partials.  After each pass
+//     the tiles' partials are added into the rank accumulator in tile order
+//     by one thread per rank.  No float atomics: reruns are bitwise equal;
+//   * shared memory grows with S only by the rank accumulator, 3 NRHS
+//     (S + W) floats, beside a fixed part: the matvec and build_mv launch
+//     at the same S within one window's worth of mask rows (the limits are
+//     in tests/test_torch_cuda.py);
+//   * the blocks with a transposed half run first and the lighter h = 0
+//     blocks last, where they fill the grid's last wave (1080 blocks, two
+//     per SM at the bench shapes with one RHS).
+// Its H100 times are in PERF.md.
 #include "common.cuh"
 
 namespace {
 
 constexpr int N_HALF = 5;
-constexpr int WARPS = 8;
-constexpr int THREADS = 32 * WARPS;
-constexpr int MAX_RPW = 4;  // rows per warp: R <= 32
+constexpr int THREADS = 256;
+constexpr int LPT = 8;  // window lanes per thread
 
-// MODE_BUILD_MV builds A and applies it, MODE_BUILD only builds it (NRHS =
-// 0, no f, no uo)
+// csrc modes of pse_banded (banded_nearfield.MODE_*): build A and apply it,
+// or only build it (no right-hand side)
 constexpr int MODE_BUILD_MV = 0, MODE_BUILD = 1;
 
 // (0,0) then the positive half stencil (banded_nearfield.full_xy_offsets)
@@ -72,228 +102,494 @@ __constant__ int OX[N_HALF] = {0, 0, 1, 1, 1};
 __constant__ int OY[N_HALF] = {0, 1, -1, 0, 1};
 
 struct Band {
-  const float *px, *py, *pz, *mask;  // (C, S) slot coordinates / occupancy
-  const float* f;                    // (3 NRHS, C, S) right-hand sides, pads 0
-  const int* j0;                     // (5, C, T) window start ranks
-  const float* zsh;                  // (5, C, T) window z image shifts
-  const int* n_valid;                // (C,) occupied slots per column
-  const float* cheb;                 // chebyshev.device_coeffs layout
+  const float *px, *py, *pz;  // (C, S) slot coordinates
+  const float* mask;          // (C, S) slot occupancy, 0 or 1 (build)
+  const float* f;             // (3 NRHS, C, S) right-hand sides, pads 0
+  const int* j0;              // (5, C, T) window start ranks
+  const float* zsh;           // (5, C, T) window z image shifts
+  const int* n_valid;         // (C,) occupied slots per column
+  const float* cheb;          // chebyshev.device_coeffs layout (build)
   int n_coef;
   float mid, cut2, dr2;
-  int ncx, ncy, S, R, W, T;
+  int ncx, ncy, S, R, W, T, G;
   float Lx, Ly, Lz, tilt;
   void* A;    // (C, 2, S, 5W) block dtype: (imrr, bco/d^2)
   float* uo;  // (C, 9, 3 NRHS, S)
 };
 
-// The Clenshaw recurrence of chebyshev.eval_pair_functions, rounded step by
-// step as it is there (no fused multiply-add), so that the build's float32
-// coefficients are the plain build's.  On the H100 that costs ~4 % of a
-// build_mv (pse_tpu_torch/ab.py --contract times it against contracted
-// FMAs).
-__device__ __forceinline__ float clenshaw(const float* c_lo, const float* c_hi,
-                                          bool in_lo, float t, int n) {
+// LPT consecutive coefficients of one A row (16-byte aligned)
+template <typename AT>
+struct Coef8;
+
+template <>
+struct Coef8<__nv_bfloat16> {
+  uint4 v;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    v = __ldcs(reinterpret_cast<const uint4*>(p));
+  }
+  __device__ __forceinline__ void store(__nv_bfloat16* p) const {
+    __stcs(reinterpret_cast<uint4*>(p), v);
+  }
+  __device__ __forceinline__ void zero() { v = make_uint4(0u, 0u, 0u, 0u); }
+  // from LPT values that are bfloat16 numbers
+  __device__ __forceinline__ void pack(const float (&x)[LPT]) {
+    auto two = [&](int l) {
+      return (__float_as_uint(x[l]) >> 16) |
+             (__float_as_uint(x[l + 1]) & 0xffff0000u);
+    };
+    v = make_uint4(two(0), two(2), two(4), two(6));
+  }
+  __device__ __forceinline__ float operator[](int l) const {
+    const unsigned w = l < 2 ? v.x : (l < 4 ? v.y : (l < 6 ? v.z : v.w));
+    return __uint_as_float((l & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+};
+
+template <>
+struct Coef8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = __ldcs(reinterpret_cast<const float4*>(p));
+    b = __ldcs(reinterpret_cast<const float4*>(p) + 1);
+  }
+  __device__ __forceinline__ void store(float* p) const {
+    __stcs(reinterpret_cast<float4*>(p), a);
+    __stcs(reinterpret_cast<float4*>(p) + 1, b);
+  }
+  __device__ __forceinline__ void zero() {
+    a = make_float4(0.f, 0.f, 0.f, 0.f);
+    b = a;
+  }
+  __device__ __forceinline__ void pack(const float (&x)[LPT]) {
+    a = make_float4(x[0], x[1], x[2], x[3]);
+    b = make_float4(x[4], x[5], x[6], x[7]);
+  }
+  __device__ __forceinline__ float operator[](int l) const {
+    const float4& q = l < 4 ? a : b;
+    const int m = l & 3;
+    return m == 0 ? q.x : (m == 1 ? q.y : (m == 2 ? q.z : q.w));
+  }
+};
+
+// The coefficient pair of one queued valid pair, rounded to the block
+// dtype: two bfloat16 in the queue's own word, or two floats, the second QN
+// words further.
+__device__ __forceinline__ void put_pair(float* q, int e, int, float s1,
+                                         float s2, __nv_bfloat16*) {
+  reinterpret_cast<unsigned*>(q)[e] =
+      (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(s1)) |
+      ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(s2)) << 16);
+}
+__device__ __forceinline__ void put_pair(float* q, int e, int qn, float s1,
+                                         float s2, float*) {
+  q[e] = s1;
+  q[e + qn] = s2;
+}
+__device__ __forceinline__ void get_pair(const float* q, int e, int,
+                                         float& s1, float& s2,
+                                         __nv_bfloat16*) {
+  const unsigned w = reinterpret_cast<const unsigned*>(q)[e];
+  s1 = __uint_as_float(w << 16);
+  s2 = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void get_pair(const float* q, int e, int qn,
+                                         float& s1, float& s2, float*) {
+  s1 = q[e];
+  s2 = q[e + qn];
+}
+
+// The two Clenshaw recurrences of chebyshev.eval_pair_functions on the
+// coefficient rows c1 and c1 + n, rounded step by step as they are there
+// (no fused multiply-add), so that the build's float32 coefficients are the
+// plain build's.  On the H100 those roundings cost 0.044 ms of a build_mv
+// before the pair functions were confined to valid pairs
+// (pse_tpu_torch/ab.py --contract times them against contracted FMAs).
+__device__ __forceinline__ void clenshaw2(const float* c1, float t, int n,
+                                          float& uf1, float& uf2) {
+  const float* c2 = c1 + n;
   const float t2 = 2.f * t;
-  float b1 = 0.f, b2 = 0.f;
+  float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
+#pragma unroll 8
   for (int k = n - 1; k > 0; --k) {
-    const float ck = in_lo ? c_lo[k] : c_hi[k];
-    const float nb = __fsub_rn(__fadd_rn(ck, __fmul_rn(t2, b1)), b2);
+    const float na = __fsub_rn(__fadd_rn(c1[k], __fmul_rn(t2, a1)), a2);
+    const float nb = __fsub_rn(__fadd_rn(c2[k], __fmul_rn(t2, b1)), b2);
+    a2 = a1;
+    a1 = na;
     b2 = b1;
     b1 = nb;
   }
-  return __fsub_rn(__fadd_rn(in_lo ? c_lo[0] : c_hi[0], __fmul_rn(t, b1)),
-                   b2);
+  uf1 = __fsub_rn(__fadd_rn(c1[0], __fmul_rn(t, a1)), a2);
+  uf2 = __fsub_rn(__fadd_rn(c2[0], __fmul_rn(t, b1)), b2);
 }
 
-template <int MODE, int NRHS, typename AT>
-__global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
-  constexpr int NR = NRHS > 0 ? NRHS : 1;  // register array extent
-  constexpr int NF = 3 * NRHS;             // right-hand-side rows
-  extern __shared__ float smem[];
-  const int S = b.S, W = b.W, R = b.R, T = b.T;
+// Own rows staged per pass of tiles: the P = THREADS / G tiles that run at
+// once, or all T.
+__host__ __device__ __forceinline__ int pass_rows(int G, int T, int R) {
+  return (THREADS / G < T ? THREADS / G : T) * R;
+}
+
+// A tile group's scratch: its window's 3 + NF rows of G LPT lanes (and the
+// mask row when it builds), which the forward sums of a load group (RG NF G
+// <= NF G LPT / 2 floats), the build's queue (RG G LPT pairs, 4 G LPT
+// floats) and then the transposed partials (NF rows) reuse; one row of
+// padding when several groups share a warp.
+__host__ __device__ __forceinline__ int group_floats(int nf, int G,
+                                                     bool build) {
+  return (3 + nf + (build ? 1 : 0)) * G * LPT + (G < 32 ? G : 0);
+}
+
+// Shared memory floats: a pass's own (x, y, z, mask) and NRHS (f, 0) rows
+// as float4, the rank accumulator, the P tile groups' scratch, the
+// per-tile j0 and zsh, and the build's Chebyshev operand.
+size_t smem_floats(int nrhs, int S, int W, int T, int G, int R, bool build,
+                   int n_coef) {
+  const int nf = 3 * nrhs;
+  return 4 * (size_t)(1 + nrhs) * pass_rows(G, T, R) +
+         (size_t)nf * (S + W) +
+         (size_t)(THREADS / G) * group_floats(nf, G, build) + 2 * (size_t)T +
+         (build ? 4 + 4 * (size_t)n_coef : 0);
+}
+
+template <int NRHS, typename AT, bool TR, bool BUILD>
+__device__ __forceinline__ void column_block(const Band& b, float* smem,
+                                             const int c, const int h) {
+  constexpr int NF = 3 * NRHS;
+  constexpr int NX = NF > 0 ? NF : 1;          // register array extent
+  constexpr int RG = sizeof(AT) == 2 ? 4 : 2;  // rows per load group
+  const int S = b.S, W = b.W, R = b.R, T = b.T, G = b.G;
+  const int SW = S + W, P = THREADS / G, GL = G * LPT;
+  const int PR = pass_rows(G, T, R);
   const int C = b.ncx * b.ncy;
   const long long CS = (long long)C * S;
-  const int c = blockIdx.x, h = blockIdx.y;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rpw = R / WARPS;
+  const int tid = threadIdx.x;
 
   const int cx = c / b.ncy, cy = c % b.ncy;
   const int ox = OX[h], oy = OY[h];
   const int nbr =
       ((cx + ox + b.ncx) % b.ncx) * b.ncy + (cy + oy + b.ncy) % b.ncy;
   const int nv = b.n_valid[nbr];
+  const int Tv = (b.n_valid[c] + R - 1) / R;  // tiles with occupied rows
   const float wx = (cx + ox >= b.ncx) ? 1.f : ((cx + ox < 0) ? -1.f : 0.f);
   const float wy = (cy + oy >= b.ncy) ? 1.f : ((cy + oy < 0) ? -1.f : 0.f);
   // explicit roundings (no fused multiply-add) in the geometry the build
   // tests against the cutoff, so that the plain build reproduces it
   const float sy = wy * b.Ly;
   const float sx = __fadd_rn(wx * b.Lx, __fmul_rn(b.tilt, sy));
-  const bool transposed = NRHS > 0 && h > 0;
 
-  float* own = smem;                      // (4 + NF) x S: x, y, z, m, f rows
-  float* acc = own + (4 + NF) * S;        // NF x (S + W): transposed, by rank
-  float* part = acc + NF * (S + W);       // WARPS x NF x W: per-warp partials
-  float* cf = part + WARPS * NF * W;      // Chebyshev operand (build)
-  const int SW = S + W;
+  float4* ownp = reinterpret_cast<float4*>(smem);          // PR
+  float4* ownf = ownp + PR;                                 // NRHS x PR
+  float* acc = reinterpret_cast<float*>(ownf + NRHS * PR);  // NF x SW
+  const int WS = group_floats(NF, G, BUILD);
+  float* scr = acc + NF * SW;                                // P x WS
+  int* tj0 = reinterpret_cast<int*>(scr + P * WS);           // T
+  float* tzs = reinterpret_cast<float*>(tj0 + T);            // T
+  float* cf = tzs + T;  // Chebyshev operand (build): 4 + 4 n_coef
+  const int nc = b.n_coef;
 
-  for (int s = tid; s < S; s += THREADS) {
-    const long long o = (long long)c * S + s;
-    own[s] = b.px[o];
-    own[S + s] = b.py[o];
-    own[2 * S + s] = b.pz[o];
-    own[3 * S + s] = b.mask[o];
+  // the own rows of the pass of tiles from t0
+  auto stage_own = [&](int t0) {
+    const int i0 = t0 * R, n = min(PR, Tv * R - i0);
+    for (int s = tid; s < n; s += THREADS) {
+      const long long o = (long long)c * S + i0 + s;
+      ownp[s] = make_float4(b.px[o], b.py[o], b.pz[o],
+                            BUILD ? b.mask[o] : 0.f);
 #pragma unroll
-    for (int k = 0; k < NF; ++k) own[(4 + k) * S + s] = b.f[k * CS + o];
+      for (int r = 0; r < NRHS; ++r)
+        ownf[r * PR + s] = make_float4(b.f[3 * r * CS + o],
+                                       b.f[(3 * r + 1) * CS + o],
+                                       b.f[(3 * r + 2) * CS + o], 0.f);
+    }
+  };
+  stage_own(0);
+  for (int t = tid; t < T; t += THREADS) {
+    const long long wt = ((long long)h * C + c) * T + t;
+    tj0[t] = b.j0[wt];
+    tzs[t] = b.zsh[wt];
   }
-  for (int s = tid; s < NF * SW; s += THREADS) acc[s] = 0.f;
-  for (int s = tid; s < 4 + 4 * b.n_coef; s += THREADS) cf[s] = b.cheb[s];
-  __syncthreads();
-
+  if (TR)
+    for (int s = tid; s < NF * SW; s += THREADS) acc[s] = 0.f;
+  float* fwd = b.uo + ((long long)c * 9 + h) * NF * S;
+  for (int s = Tv * R + tid; s < S; s += THREADS)
+#pragma unroll
+    for (int k = 0; k < NF; ++k) fwd[k * S + s] = 0.f;
   AT* A = reinterpret_cast<AT*>(b.A);
   const long long a_row = (long long)N_HALF * W;
-  const long long a_im = (long long)c * 2 * S * a_row;  // A[c, 0]
-  const long long a_bq = a_im + (long long)S * a_row;   // A[c, 1]
-  const int nc = b.n_coef;
-  float* wpart = part + warp * NF * W;
-
-  // tiles past ceil(n_valid[c] / R) hold no occupied row: their A rows are
-  // zero (16-byte stores) and their forward rows zero, and they add nothing
-  // to the transposed sums
-  const int Tv = (b.n_valid[c] + R - 1) / R;
-  {
+  if (BUILD) {
+    for (int s = tid; s < 4 + 4 * nc; s += THREADS) cf[s] = b.cheb[s];
+    // the empty tiles' A rows of this offset, both planes: zeros
     const int i0 = Tv * R, rows = S - i0;
     const int chunks = W * (int)sizeof(AT) / 16;
     for (int e = tid; e < 2 * rows * chunks; e += THREADS) {
       const int r = e / chunks, pl = r / rows, i = i0 + r % rows;
-      reinterpret_cast<uint4*>(A + a_im + (long long)pl * S * a_row +
-                               (long long)i * a_row + (long long)h * W)
-          [e % chunks] = make_uint4(0u, 0u, 0u, 0u);
+      __stcs(reinterpret_cast<uint4*>(
+                 A + ((long long)(2 * c + pl) * S + i) * a_row +
+                 (long long)h * W) + e % chunks,
+             make_uint4(0u, 0u, 0u, 0u));
     }
-    float* fwd = b.uo + ((long long)c * 9 + h) * NF * S;
-    for (int s = i0 + tid; s < S; s += THREADS)
-#pragma unroll
-      for (int k = 0; k < NF; ++k) fwd[k * S + s] = 0.f;
   }
+  __syncthreads();
 
-  for (int t = 0; t < Tv; ++t) {
-    const long long wt = ((long long)h * C + c) * T + t;
-    const int j0 = b.j0[wt];
-    const float zs = b.zsh[wt];
+  const int p = tid / G, g = tid % G, w0 = g * LPT;
+  float* grp = scr + p * WS;  // this tile group's scratch
+  const bool lanes = w0 < W;  // W = 192 leaves a quarter of the group idle
+  const unsigned gmask =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((tid & 31) & ~(G - 1));
 
-    float xi[MAX_RPW], yi[MAX_RPW], zi[MAX_RPW], mi[MAX_RPW];
-    float fi[NR][3][MAX_RPW], u[NR][3][MAX_RPW];
-#pragma unroll
-    for (int q = 0; q < MAX_RPW; ++q) {
-      const int i = q < rpw ? t * R + warp + WARPS * q : 0;
-      xi[q] = own[i];
-      yi[q] = own[S + i];
-      zi[q] = own[2 * S + i];
-      mi[q] = own[3 * S + i];
-#pragma unroll
-      for (int r = 0; r < NRHS; ++r)
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          fi[r][k][q] = own[(4 + 3 * r + k) * S + i];
-          u[r][k][q] = 0.f;
-        }
+  for (int t0 = 0; t0 < Tv; t0 += P) {
+    if (t0 > 0) {  // the last pass is done with its own rows
+      __syncthreads();
+      stage_own(t0);
+      __syncthreads();
     }
-
-    for (int w = lane; w < W; w += 32) {
-      const int rank = j0 + w;
-      const bool wrap = rank >= nv;
-      const int j = wrap ? rank - nv : rank;
-      const long long o = (long long)nbr * S + min(j, S - 1);
-      const float xw = b.px[o] + sx;
-      const float yw = b.py[o] + sy;
-      const float zw = (b.pz[o] + (wrap ? b.Lz : 0.f)) - zs;
-      const float mw = (w < nv) ? b.mask[o] : 0.f;
-      float fw[NR][3], tp[NR][3];
+    const int t = t0 + p;
+    const bool live = t < Tv;  // the same for the G threads of a tile
+    if (live) {
+      const int j0 = tj0[t];
+      const float zs = tzs[t];
+      AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
+                 (long long)h * W + w0;
+      AT* a_bq = a_im + (long long)S * a_row;
+      auto load_rows = [&](Coef8<AT>* im, Coef8<AT>* bq, int i0) {
 #pragma unroll
-      for (int r = 0; r < NRHS; ++r)
-#pragma unroll
-        for (int k = 0; k < 3; ++k) {
-          fw[r][k] = b.f[(3 * r + k) * CS + o];
-          tp[r][k] = 0.f;
-        }
-#pragma unroll
-      for (int q = 0; q < MAX_RPW; ++q) {
-        if (q >= rpw) break;
-        const int i = t * R + warp + WARPS * q;
-        const float dx = xi[q] - xw, dy = yi[q] - yw, dz = zi[q] - zw;
-        const long long ai = (long long)i * a_row + (long long)h * W + w;
-        const float d2 = __fadd_rn(
-            __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-            __fmul_rn(dz, dz));
-        const bool valid = (mi[q] * mw > 0.f) && (d2 < b.cut2) &&
-                           (d2 >= b.dr2) && !(h == 0 && j == i);
-        const float d2s = valid ? d2 : 1.f;
-        const float dist = sqrtf(d2s);
-        const bool in_lo = dist < b.mid;
-        const float tt = in_lo ? (2.f * dist - cf[0]) / cf[1]
-                               : (2.f * dist - cf[2]) / cf[3];
-        const float uf1 = clenshaw(cf + 4, cf + 4 + 2 * nc, in_lo, tt, nc);
-        const float uf2 =
-            clenshaw(cf + 4 + nc, cf + 4 + 3 * nc, in_lo, tt, nc);
-        const AT s1 = from_f32<AT>(valid ? uf1 : 0.f);
-        const AT s2 = from_f32<AT>(valid ? (uf2 - uf1) / d2s : 0.f);
-        A[a_im + ai] = s1;
-        A[a_bq + ai] = s2;
-        const float F1 = to_f32(s1), Bq = to_f32(s2);
-#pragma unroll
-        for (int r = 0; r < NRHS; ++r) {
-          const float g = Bq * (dx * fw[r][0] + dy * fw[r][1] + dz * fw[r][2]);
-          u[r][0][q] += F1 * fw[r][0] + g * dx;
-          u[r][1][q] += F1 * fw[r][1] + g * dy;
-          u[r][2][q] += F1 * fw[r][2] + g * dz;
-          if (h > 0) {
-            const float gi =
-                Bq * (dx * fi[r][0][q] + dy * fi[r][1][q] + dz * fi[r][2][q]);
-            tp[r][0] += F1 * fi[r][0][q] + gi * dx;
-            tp[r][1] += F1 * fi[r][1][q] + gi * dy;
-            tp[r][2] += F1 * fi[r][2][q] + gi * dz;
+        for (int rr = 0; rr < RG; ++rr) {
+          if (lanes) {
+            im[rr].load(a_im + (i0 + rr) * a_row);
+            bq[rr].load(a_bq + (i0 + rr) * a_row);
+          } else {
+            im[rr].zero();
+            bq[rr].zero();
           }
         }
+      };
+      Coef8<AT> im[RG], bq[RG];
+      if (!BUILD) load_rows(im, bq, 0);  // in flight while the window loads
+      // the window's GL lanes into the scratch, lane wl of each row by
+      // thread wl % G: rank q < nv is slot q, rank q >= nv is slot q - nv
+      // one period up
+#pragma unroll
+      for (int m = 0; m < LPT; ++m) {
+        const int wl = g + G * m;
+        const int q = min(j0 + wl, SW - 1);
+        const bool wrap = q >= nv;
+        const long long o =
+            (long long)nbr * S + min(wrap ? q - nv : q, S - 1);
+        grp[wl] = __ldg(b.px + o) + sx;
+        grp[GL + wl] = __ldg(b.py + o) + sy;
+        grp[2 * GL + wl] = (__ldg(b.pz + o) + (wrap ? b.Lz : 0.f)) - zs;
+#pragma unroll
+        for (int k = 0; k < NF; ++k)
+          grp[(3 + k) * GL + wl] = __ldg(b.f + k * CS + o);
+        if (BUILD)
+          grp[(3 + NF) * GL + wl] = wl < nv ? __ldg(b.mask + o) : 0.f;
       }
-      if (transposed) {
+      __syncwarp(gmask);
+      // this thread's LPT lanes of each row, two 16-byte loads a row
+      float xw[LPT], yw[LPT], zw[LPT], fw[NX][LPT], tp[NX][LPT];
+      auto lanes8 = [&](float* dst, int row) {
+        const float4* src =
+            reinterpret_cast<const float4*>(grp + row * GL + w0);
+        const float4 lo = src[0], hi = src[1];
+        dst[0] = lo.x, dst[1] = lo.y, dst[2] = lo.z, dst[3] = lo.w;
+        dst[4] = hi.x, dst[5] = hi.y, dst[6] = hi.z, dst[7] = hi.w;
+      };
+      lanes8(xw, 0);
+      lanes8(yw, 1);
+      lanes8(zw, 2);
 #pragma unroll
-        for (int r = 0; r < NRHS; ++r)
+      for (int k = 0; k < NF; ++k) {
+        lanes8(fw[k], 3 + k);
 #pragma unroll
-          for (int k = 0; k < 3; ++k) wpart[(3 * r + k) * W + w] = tp[r][k];
+        for (int l = 0; l < LPT; ++l) tp[k][l] = 0.f;
       }
-    }
-
-    // forward rows: fixed-order butterfly across the warp's lanes
+      unsigned mwb = 0;  // the occupied lanes of this thread (build)
+      if (BUILD) {
+        float mw[LPT];
+        lanes8(mw, 3 + NF);
 #pragma unroll
-    for (int q = 0; q < MAX_RPW; ++q) {
-      if (q >= rpw) break;
+        for (int l = 0; l < LPT; ++l) mwb |= (lanes && mw[l] > 0.f) << l;
+      }
+      __syncwarp(gmask);  // the scratch holds the row sums from here
+      float* redp = grp;
+      float* queue = grp + RG * NF * G;  // the build's valid pairs
+      const int QN = RG * GL;            // its capacity
+      const int rb = j0 + w0;            // rank of this thread's lane 0
+      for (int i0 = 0; i0 < R; i0 += RG) {
+        int qb[RG];       // the build: this thread's first queue entry
+        unsigned vb[RG];  // and its valid lanes, per row
+        if (BUILD) {
+          // every pair's geometry and validity; the valid pairs' d^2 go to
+          // the group's queue, each thread's in lane order after those of
+          // the threads before it
+          int n = 0;  // entries the group has queued
 #pragma unroll
-      for (int r = 0; r < NRHS; ++r) {
-        float v0 = u[r][0][q], v1 = u[r][1][q], v2 = u[r][2][q];
+          for (int rr = 0; rr < RG; ++rr) {
+            const int i = t * R + i0 + rr;  // own slot
+            const float4 pi = ownp[p * R + i0 + rr];
+            float d2[LPT];
+            unsigned bits = 0;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          v0 += __shfl_xor_sync(0xffffffffu, v0, off);
-          v1 += __shfl_xor_sync(0xffffffffu, v1, off);
-          v2 += __shfl_xor_sync(0xffffffffu, v2, off);
+            for (int l = 0; l < LPT; ++l) {
+              const float dx = pi.x - xw[l], dy = pi.y - yw[l],
+                          dz = pi.z - zw[l];
+              d2[l] = __fadd_rn(
+                  __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                  __fmul_rn(dz, dz));
+              int j = rb + l;
+              j = j >= nv ? j - nv : j;
+              const bool valid = ((mwb >> l) & 1u) && pi.w > 0.f &&
+                                 d2[l] < b.cut2 && d2[l] >= b.dr2 &&
+                                 !(h == 0 && j == i);
+              bits |= (unsigned)valid << l;
+            }
+            const int cnt = __popc(bits);
+            int incl = cnt;  // inclusive prefix over the group's threads
+            for (int off = 1; off < G; off <<= 1) {
+              const int y = __shfl_up_sync(gmask, incl, off, G);
+              if (g >= off) incl += y;
+            }
+            int pos = n + incl - cnt;
+            qb[rr] = pos;
+            vb[rr] = bits;
+            n += __shfl_sync(gmask, incl, G - 1, G);
+#pragma unroll
+            for (int l = 0; l < LPT; ++l)
+              if ((bits >> l) & 1u) queue[pos++] = d2[l];
+          }
+          __syncwarp(gmask);
+          // the pair functions over the queue, every thread of the group
+          // busy, rounded to the block dtype in place
+          for (int e = g; e < n; e += G) {
+            const float d2 = queue[e];
+            const float dist = sqrtf(d2);
+            const bool in_lo = dist < b.mid;
+            const float* ab = cf + (in_lo ? 0 : 2);
+            const float tt = (2.f * dist - ab[0]) / ab[1];
+            float uf1, uf2;
+            clenshaw2(cf + 4 + (in_lo ? 0 : 2 * nc), tt, nc, uf1, uf2);
+            put_pair(queue, e, QN, uf1, (uf2 - uf1) / d2, (AT*)nullptr);
+          }
+          __syncwarp(gmask);
         }
-        if (lane == 0) {
-          const int i = t * R + warp + WARPS * q;
-          float* out = b.uo + (((long long)c * 9 + h) * NF + 3 * r) * S + i;
-          out[0] = v0;
-          out[S] = v1;
-          out[2 * S] = v2;
+        // row rr's coefficients: in the build read back from the queue,
+        // stored, and applied as the matvec applies the loaded ones
+        auto coefs = [&](int rr, Coef8<AT>& ci, Coef8<AT>& cb) {
+          if (!BUILD) {
+            ci = im[rr];
+            cb = bq[rr];
+            return;
+          }
+          float s1[LPT], s2[LPT];
+          int pos = qb[rr];
+#pragma unroll
+          for (int l = 0; l < LPT; ++l) {
+            s1[l] = 0.f;
+            s2[l] = 0.f;
+            if ((vb[rr] >> l) & 1u)
+              get_pair(queue, pos++, QN, s1[l], s2[l], (AT*)nullptr);
+          }
+          ci.pack(s1);
+          cb.pack(s2);
+          if (lanes) {
+            ci.store(a_im + (i0 + rr) * a_row);
+            cb.store(a_bq + (i0 + rr) * a_row);
+          }
+        };
+        if (NRHS == 0) {
+#pragma unroll
+          for (int rr = 0; rr < RG; ++rr) {
+            Coef8<AT> ci, cb;
+            coefs(rr, ci, cb);
+          }
+          __syncwarp(gmask);  // the queue is free again
+          continue;
         }
+#pragma unroll
+        for (int rr = 0; rr < RG; ++rr) {
+          const int i = p * R + i0 + rr;  // row t R + i0 + rr of the column
+          const float4 pi = ownp[i];
+          Coef8<AT> ci, cb;
+          coefs(rr, ci, cb);
+          float fi[NX], u[NX];
+#pragma unroll
+          for (int r = 0; r < NRHS; ++r) {
+            const float4 q = ownf[r * PR + i];
+            fi[3 * r] = q.x;
+            fi[3 * r + 1] = q.y;
+            fi[3 * r + 2] = q.z;
+          }
+#pragma unroll
+          for (int k = 0; k < NF; ++k) u[k] = 0.f;
+#pragma unroll
+          for (int l = 0; l < LPT; ++l) {
+            const float F1 = ci[l], Bq = cb[l];
+            const float dx = pi.x - xw[l], dy = pi.y - yw[l],
+                        dz = pi.z - zw[l];
+#pragma unroll
+            for (int r = 0; r < NRHS; ++r) {
+              const float gq = Bq * (dx * fw[3 * r][l] + dy * fw[3 * r + 1][l] +
+                                     dz * fw[3 * r + 2][l]);
+              u[3 * r] = fmaf(gq, dx, fmaf(F1, fw[3 * r][l], u[3 * r]));
+              u[3 * r + 1] =
+                  fmaf(gq, dy, fmaf(F1, fw[3 * r + 1][l], u[3 * r + 1]));
+              u[3 * r + 2] =
+                  fmaf(gq, dz, fmaf(F1, fw[3 * r + 2][l], u[3 * r + 2]));
+              if (TR) {
+                const float gi = Bq * (dx * fi[3 * r] + dy * fi[3 * r + 1] +
+                                       dz * fi[3 * r + 2]);
+                tp[3 * r][l] =
+                    fmaf(gi, dx, fmaf(F1, fi[3 * r], tp[3 * r][l]));
+                tp[3 * r + 1][l] =
+                    fmaf(gi, dy, fmaf(F1, fi[3 * r + 1], tp[3 * r + 1][l]));
+                tp[3 * r + 2][l] =
+                    fmaf(gi, dz, fmaf(F1, fi[3 * r + 2], tp[3 * r + 2][l]));
+              }
+            }
+          }
+          // the row's partial sums, one per thread of the tile
+#pragma unroll
+          for (int k = 0; k < NF; ++k) redp[(rr * NF + k) * G + g] = u[k];
+        }
+        // forward rows: each of the group's RG NF sums over the G threads,
+        // in thread order, by one thread
+        __syncwarp(gmask);
+        for (int o = g; o < RG * NF; o += G) {
+          const float4* v = reinterpret_cast<const float4*>(redp + o * G);
+          float sum = 0.f;
+          for (int q = 0; q < G / 4; ++q) {
+            const float4 x = v[q];
+            sum += x.x;
+            sum += x.y;
+            sum += x.z;
+            sum += x.w;
+          }
+          fwd[(o % NF) * S + t * R + i0 + o / NF] = sum;
+        }
+        __syncwarp(gmask);
+        if (!BUILD && i0 + RG < R) load_rows(im, bq, i0 + RG);
       }
+      if (TR && lanes)
+#pragma unroll
+        for (int k = 0; k < NF; ++k)
+#pragma unroll
+          for (int l = 0; l < LPT; ++l)
+            grp[k * GL + w0 + l] = tp[k][l];
     }
-
-    // transposed lanes: fixed-order sum of the warp partials into ranks
-    if (transposed) {
+    if (TR) {
+      // the pass's partials into the ranks, in tile order
       __syncthreads();
-      for (int w = tid; w < W; w += THREADS) {
-        for (int k = 0; k < NF; ++k) {
-          float s = 0.f;
-          for (int p = 0; p < WARPS; ++p) s += part[(p * NF + k) * W + w];
-          acc[k * SW + j0 + w] += s;
+      const int np = min(P, Tv - t0);
+      for (int q = tid; q < SW; q += THREADS) {
+        float s[NX];
+#pragma unroll
+        for (int k = 0; k < NF; ++k) s[k] = acc[k * SW + q];
+        for (int pp = 0; pp < np; ++pp) {
+          const int d = q - tj0[t0 + pp];
+          if (d >= 0 && d < W)
+#pragma unroll
+            for (int k = 0; k < NF; ++k) s[k] += scr[pp * WS + k * GL + d];
         }
+#pragma unroll
+        for (int k = 0; k < NF; ++k) acc[k * SW + q] = s[k];
       }
       __syncthreads();
     }
@@ -301,7 +597,7 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
 
   // fold cyclic ranks to slots: ranks < nv are slots, ranks in [nv, nv + W)
   // wrap to slots [0, W)
-  if (transposed) {
+  if (TR) {
     float* out = b.uo + ((long long)c * 9 + 4 + h) * NF * S;
     for (int s = tid; s < S; s += THREADS) {
       for (int k = 0; k < NF; ++k) {
@@ -313,13 +609,28 @@ __global__ void __launch_bounds__(THREADS) banded_kernel(Band b) {
   }
 }
 
-template <int MODE, int NRHS, typename AT>
+// NRHS right-hand sides (0: the build alone); BUILD: build A, else read it
+template <int NRHS, typename AT, bool BUILD>
+__global__ void __launch_bounds__(THREADS, NRHS <= 1 ? 2 : 1)
+    banded_kernel(Band b) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  // the blocks with a transposed half first, the lighter h = 0 ones last,
+  // so that they fill the last wave
+  const int C = b.ncx * b.ncy;
+  const int item = blockIdx.x + C * blockIdx.y;
+  const int c = item % C, h = item < (N_HALF - 1) * C ? 1 + item / C : 0;
+  if (NRHS > 0 && h > 0)
+    column_block<NRHS, AT, (NRHS > 0), BUILD>(b, smem, c, h);
+  else
+    column_block<NRHS, AT, false, BUILD>(b, smem, c, h);
+}
+
+template <int NRHS, typename AT, bool BUILD>
 cudaError_t launch(const Band& b, cudaStream_t stream) {
-  constexpr int NF = 3 * NRHS;
-  const size_t smem =
-      sizeof(float) * ((4 + NF) * (size_t)b.S + NF * (size_t)(b.S + b.W) +
-                       (size_t)WARPS * NF * b.W + 4 + 4 * (size_t)b.n_coef);
-  auto kernel = banded_kernel<MODE, NRHS, AT>;
+  const size_t smem = sizeof(float) * smem_floats(NRHS, b.S, b.W, b.T, b.G,
+                                                  b.R, BUILD, b.n_coef);
+  auto kernel = banded_kernel<NRHS, AT, BUILD>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(b.ncx * b.ncy, N_HALF);
@@ -328,16 +639,50 @@ cudaError_t launch(const Band& b, cudaStream_t stream) {
 }
 
 template <typename AT>
-cudaError_t dispatch(int mode, int nrhs, const Band& b, cudaStream_t stream) {
-  if (mode == MODE_BUILD)
-    return nrhs == 0 ? launch<MODE_BUILD, 0, AT>(b, stream)
-                     : cudaErrorInvalidValue;
-  if (nrhs == 1) return launch<MODE_BUILD_MV, 1, AT>(b, stream);
-  if (nrhs == 2) return launch<MODE_BUILD_MV, 2, AT>(b, stream);
+cudaError_t dispatch(bool build, int nrhs, const Band& b,
+                     cudaStream_t stream) {
+  if (!build) {
+    if (nrhs == 1) return launch<1, AT, false>(b, stream);
+    if (nrhs == 2) return launch<2, AT, false>(b, stream);
+    return cudaErrorInvalidValue;
+  }
+  if (nrhs == 0) return launch<0, AT, true>(b, stream);
+  if (nrhs == 1) return launch<1, AT, true>(b, stream);
+  if (nrhs == 2) return launch<2, AT, true>(b, stream);
   return cudaErrorInvalidValue;
 }
 
+// R a multiple of 8 (so of each load group) up to 32 dividing S; W a
+// multiple of 64 up to 256, so that every A row segment is 16-byte aligned
+bool shapes_ok(int S, int R, int W, const void* A) {
+  return R % 8 == 0 && R <= 32 && S % R == 0 && W % 64 == 0 && W <= 256 &&
+         reinterpret_cast<uintptr_t>(A) % 16 == 0;
+}
+
+int group_threads(int W) {
+  int G = 8;
+  while (G * LPT < W) G *= 2;
+  return G;
+}
+
 }  // namespace
+
+extern "C" int pse_banded_matvec(int nrhs, const float* px, const float* py,
+                                 const float* pz, const float* f,
+                                 const int* j0, const float* zsh,
+                                 const int* n_valid, int ncx, int ncy, int S,
+                                 int R, int W, float Lx, float Ly, float Lz,
+                                 float tilt, int a_bf16, const void* A,
+                                 float* uo, cudaStream_t stream) {
+  if (!shapes_ok(S, R, W, A)) return (int)cudaErrorInvalidValue;
+  const Band b{px,  py,  pz,  nullptr, f,      j0,  zsh,
+               n_valid, nullptr, 0, 0.f, 0.f, 0.f, ncx,
+               ncy, S,   R,   W,       S / R,  group_threads(W),
+               Lx,  Ly,  Lz,  tilt,    const_cast<void*>(A), uo};
+  const cudaError_t e = a_bf16 ? dispatch<__nv_bfloat16>(false, nrhs, b, stream)
+                               : dispatch<float>(false, nrhs, b, stream);
+  return (int)e;
+}
 
 extern "C" int pse_banded(int mode, int nrhs, const float* px, const float* py,
                           const float* pz, const float* mask, const float* f,
@@ -346,15 +691,13 @@ extern "C" int pse_banded(int mode, int nrhs, const float* px, const float* py,
                           float dr2, int ncx, int ncy, int S, int R, int W,
                           float Lx, float Ly, float Lz, float tilt, int a_bf16,
                           void* A, float* uo, cudaStream_t stream) {
-  if (R % WARPS != 0 || R > WARPS * MAX_RPW || S % R != 0 || W % 32 != 0 ||
-      reinterpret_cast<uintptr_t>(A) % 16 != 0 ||
+  if (!shapes_ok(S, R, W, A) || (mode == MODE_BUILD) != (nrhs == 0) ||
       mode < MODE_BUILD_MV || mode > MODE_BUILD)
     return (int)cudaErrorInvalidValue;
-  Band b{px,  py,   pz,   mask, f,   j0,  zsh, n_valid, cheb, n_coef, mid,
-         cut2, dr2, ncx, ncy, S,   R,   W,   S / R,   Lx,   Ly,     Lz,
-         tilt, A,   uo};
-  const cudaError_t e = a_bf16
-                            ? dispatch<__nv_bfloat16>(mode, nrhs, b, stream)
-                            : dispatch<float>(mode, nrhs, b, stream);
+  const Band b{px,   py,   pz,  mask, f,     j0,  zsh, n_valid, cheb,
+               n_coef, mid, cut2, dr2, ncx, ncy, S,   R,   W,
+               S / R, group_threads(W), Lx, Ly, Lz,   tilt, A,   uo};
+  const cudaError_t e = a_bf16 ? dispatch<__nv_bfloat16>(true, nrhs, b, stream)
+                               : dispatch<float>(true, nrhs, b, stream);
   return (int)e;
 }

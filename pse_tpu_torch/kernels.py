@@ -23,8 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fill.cu", "banded.cu", "banded_matvec.cu", "contract.cu",
-           "spread.cu")
+SOURCES = ("fill.cu", "banded.cu", "contract.cu", "spread.cu")
 HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

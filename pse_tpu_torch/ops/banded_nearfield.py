@@ -11,14 +11,13 @@ block dtype (1, C, 2, S, 5W); the mirror offsets are applied as transposes,
 and the dyadic d d^T part is rebuilt from f32 coordinates.
 
 Host side: ``make_band_spec``, ``full_xy_offsets``, ``compute_windows``,
-``_finish_u``.  The kernels are wrapped by ``build_mv_banded`` (build A and
-apply it to the first one or two right-hand sides, ``csrc/banded.cu``),
-``matvec_banded`` (apply the stored A to one or two,
-``csrc/banded_matvec.cu``) and ``build_banded_blocks`` (build A alone,
-``csrc/banded.cu``).  On CPU tensors the matvec wrappers
-run ``matvec_banded_reference``, the plain version: all 9 offsets, windows
-gathered, pair functions rebuilt per call, unrounded float32; the build runs
-``build_banded_blocks_reference``.
+``_finish_u``.  One kernel source, ``csrc/banded.cu``, is wrapped by
+``build_mv_banded`` (build A and apply it to the first one or two
+right-hand sides), ``matvec_banded`` (apply the stored A to one or two)
+and ``build_banded_blocks`` (build A alone).  On CPU tensors the matvec
+wrappers run ``matvec_banded_reference``, the plain version: all 9
+offsets, windows gathered, pair functions rebuilt per call, unrounded
+float32; the build runs ``build_banded_blocks_reference``.
 """
 
 from __future__ import annotations
@@ -325,8 +324,8 @@ def _band_operands(bins: CellBins, spec: BandSpec, j0, n_valid, zsh,
 def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
                    cheb: ChebPair, L, ewald_cut, ewald_dr, j0, n_valid, zsh,
                    f_cells=None):
-    """One launch of csrc/banded.cu; returns (blocks, uo (C, 9, 3 nrhs, S)
-    or None, rc).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None in
+    """One build launch of csrc/banded.cu; returns (blocks, uo (C, 9, 3 nrhs,
+    S) or None, rc).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None in
     MODE_BUILD."""
     if (f_cells is None) != (mode == MODE_BUILD):
         raise ValueError("banded kernels take right-hand sides unless they "
@@ -359,7 +358,7 @@ def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
 
 def _launch_matvec(blocks, bins: CellBins, tilt_xy, spec: BandSpec, L, j0,
                    n_valid, zsh, f_cells):
-    """One launch of csrc/banded_matvec.cu on the stored ``blocks``;
+    """One matvec launch of csrc/banded.cu on the stored ``blocks``;
     returns (uo (C, 9, 3 nrhs, S), rc)."""
     xyz, f, nrhs, j0h, zsh, nv = _band_operands(bins, spec, j0, n_valid,
                                                 zsh, f_cells)

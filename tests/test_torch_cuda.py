@@ -175,17 +175,63 @@ def test_matvec_at_empty_full_and_ragged_columns(cuda, dtype, bound):
                        u2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_build_at_empty_full_and_ragged_columns(cuda, dtype):
+    """The build skips the tiles past ceil(n_valid / R) and writes their A
+    rows as zeros: with one column empty, one at a multiple of R and one
+    not (cut from N = 5300 in L = 40), build_mv at one and two right-hand
+    sides and the build alone write the same A, bitwise the plain build
+    (the build rounds as its plain version does, then to the block dtype),
+    zero in every row of an empty tile; build_mv's u is bitwise the
+    matvec's on that A and within the bound of the plain version."""
+    cfg, pos, box = _setup(5300, 40.0, 0.2)
+    p = cfg.params
+    bs = cfg.band_spec._replace(block_dtype=dtype)
+    pos, (c0, c1, c2) = _cut_columns(pos, box, bs)
+    bins = bin_columns(pos, box, bs.bins)
+    j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+    R = bs.rows
+    assert not bool(ovf) and int(nv[c0]) == 0
+    assert int(nv[c1]) > 0 and int(nv[c1]) % R == 0
+    assert int(nv[c2]) % R != 0
+    f = vec_to_cells(bins, bs.bins, torch.randn(pos.shape, device=cuda))
+    g = vec_to_cells(bins, bs.bins, torch.randn(pos.shape, device=cuda))
+    args = (bins, 0.2, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
+            zsh)
+    A = bdn.build_banded_blocks(*args)
+    assert torch.equal(A, bdn.build_banded_blocks_reference(*args))
+    live = (nv.long() + R - 1) // R * R                    # rows of live tiles
+    rows = torch.arange(bs.bins.cap, device=cuda)
+    empty = rows[None, :] >= live[:, None]                 # (C, S)
+    assert bool(empty[c0].all())
+    assert int(empty[c1].sum()) == bs.bins.cap - int(nv[c1])
+    assert int((A[0].float().abs().sum(dim=(1, 3)) * empty).count_nonzero()
+               ) == 0
+    for rhs in (f, torch.cat([f, g])):
+        ref = bdn._reference_per_rhs(rhs, lambda fk: (
+            bdn.matvec_banded_reference(*args[:9], fk, p.self_mobility)))
+        blocks, u = bdn.build_mv_banded(*args, rhs, p.self_mobility)
+        assert torch.equal(blocks, A)
+        assert _rel(u, ref) < (1e-5 if dtype == "float32" else 2e-3)
+        assert torch.equal(
+            bdn.matvec_banded(blocks, *args, rhs, p.self_mobility), u)
+
+
 @pytest.mark.parametrize("nrhs,window,rows,cap,Lz", [
-    (1, 128, 32, 5440, 400.0), (2, 256, 32, 2752, 400.0),
-    (2, 64, 16, 3408, 1600.0)])
+    (1, 128, 32, 12704, 400.0), (2, 256, 32, 5440, 400.0),
+    (2, 64, 16, 5024, 1600.0)])
 def test_matvec_at_the_largest_cap_build_mv_launches(cuda, nrhs, window,
                                                      rows, cap, Lz):
-    """The matvec's shared memory grows with S only by its rank
-    accumulator, so it applies every A that build_mv can build: at the
-    largest cap S that build_mv's shared memory takes for this window and
-    number of right-hand sides, in a tall box (24 x 24 x Lz, 12 columns of
-    over 1000 particles, so several passes of tiles per block), against
-    the plain version, build_mv's u (<= 1e-6) and a rerun (bitwise)."""
+    """build_mv's and the matvec's shared memory grow with S only by
+    their rank accumulator, and build_mv's fixed part is the matvec's plus
+    a mask row per tile group, so the matvec applies every A that build_mv
+    can build: at the largest cap S that build_mv's shared memory takes for
+    this window, row tile and number of right-hand sides (12,704 at one
+    RHS and W = 128, 5,024 at two RHS, W = 64 and R = 16: above the 5,440
+    and 3,408 of the build_mv that kept the whole column in shared memory),
+    in a tall box (24 x 24 x Lz, 12 columns of over 1000 particles, so
+    several passes of tiles per block), build_mv and the matvec against
+    the plain version, each other (bitwise) and a rerun (bitwise)."""
     L = (24.0, 24.0, Lz)
     n = 12 * (1200 if Lz == 400.0 else 1100)
     params = make_params(xi=0.5, error=1e-3, L=L)
@@ -213,7 +259,7 @@ def test_matvec_at_the_largest_cap_build_mv_launches(cuda, nrhs, window,
     blocks, u_b = bdn.build_mv_banded(*args, f, p.self_mobility)
     u = bdn.matvec_banded(blocks, *args, f, p.self_mobility)
     assert _rel(u, ref) < 2e-3
-    assert _rel_max(u, u_b) < 1e-6
+    assert torch.equal(u, u_b)
     assert torch.equal(bdn.matvec_banded(blocks, *args, f, p.self_mobility),
                        u)
 
@@ -239,6 +285,29 @@ def test_matvec_reruns_are_bitwise_equal(cuda, nrhs):
         for _ in range(3):
             assert torch.equal(
                 bdn.matvec_banded(blocks, *args, f, p.self_mobility), u)
+
+
+@pytest.mark.parametrize("nrhs", [1, 2])
+def test_build_mv_reruns_are_bitwise_equal(cuda, nrhs):
+    """No float atomics in the build either: the same build_mv launch
+    gives the same A and u, at the default window and the widest (W =
+    256), bf16 blocks."""
+    cfg, pos, box = _setup(5300, 40.0, 0.3)
+    p = cfg.params
+    for window in (None, 256):
+        bs = cfg.band_spec if window is None else \
+            cfg.band_spec._replace(window=window)
+        bins = bin_columns(pos, box, bs.bins)
+        j0, nv, _, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+        f = torch.cat([vec_to_cells(bins, bs.bins,
+                                    torch.randn(pos.shape, device=cuda))
+                       for _ in range(nrhs)])
+        args = (bins, 0.3, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, j0,
+                nv, zsh)
+        blocks, u = bdn.build_mv_banded(*args, f, p.self_mobility)
+        for _ in range(3):
+            again, u_again = bdn.build_mv_banded(*args, f, p.self_mobility)
+            assert torch.equal(again, blocks) and torch.equal(u_again, u)
 
 
 @pytest.mark.parametrize("dtype,bound", [("float32", 1e-5),
