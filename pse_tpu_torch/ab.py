@@ -95,15 +95,16 @@ def load_other(root: Path):
 
 def contract_library(kernels, where: Path):
     """Load a second kernel library whose build (the source that defines
-    ``pse_banded``) rounds with plain (contractible) arithmetic; returns it
-    and leaves the first loaded."""
+    ``pse_banded_build``) rounds with plain (contractible) arithmetic;
+    returns it and leaves the first loaded."""
     first = kernels.library()
     csrc = kernels.CSRC
     shutil.copytree(csrc, where)
-    holders = [n for n in kernels.SOURCES
-               if 'extern "C" int pse_banded(' in (where / n).read_text()]
+    holders = [n for n in kernels.SOURCES if 'extern "C" int pse_banded_build('
+               in (where / n).read_text()]
     if len(holders) != 1:
-        raise RuntimeError(f"no single source defines pse_banded: {holders}")
+        raise RuntimeError(f"no single source defines pse_banded_build: "
+                           f"{holders}")
     path = where / holders[0]
     src = path.read_text()
     for old, new in ROUNDINGS.items():

@@ -93,10 +93,6 @@ constexpr int N_HALF = 5;
 constexpr int THREADS = 256;
 constexpr int LPT = 8;  // window lanes per thread
 
-// csrc modes of pse_banded (banded_nearfield.MODE_*): build A and apply it,
-// or only build it (no right-hand side)
-constexpr int MODE_BUILD_MV = 0, MODE_BUILD = 1;
-
 // (0,0) then the positive half stencil (banded_nearfield.full_xy_offsets)
 __constant__ int OX[N_HALF] = {0, 0, 1, 1, 1};
 __constant__ int OY[N_HALF] = {0, 1, -1, 0, 1};
@@ -127,18 +123,7 @@ struct Coef8<__nv_bfloat16> {
   __device__ __forceinline__ void load(const __nv_bfloat16* p) {
     v = __ldcs(reinterpret_cast<const uint4*>(p));
   }
-  __device__ __forceinline__ void store(__nv_bfloat16* p) const {
-    __stcs(reinterpret_cast<uint4*>(p), v);
-  }
   __device__ __forceinline__ void zero() { v = make_uint4(0u, 0u, 0u, 0u); }
-  // from LPT values that are bfloat16 numbers
-  __device__ __forceinline__ void pack(const float (&x)[LPT]) {
-    auto two = [&](int l) {
-      return (__float_as_uint(x[l]) >> 16) |
-             (__float_as_uint(x[l + 1]) & 0xffff0000u);
-    };
-    v = make_uint4(two(0), two(2), two(4), two(6));
-  }
   __device__ __forceinline__ float operator[](int l) const {
     const unsigned w = l < 2 ? v.x : (l < 4 ? v.y : (l < 6 ? v.z : v.w));
     return __uint_as_float((l & 1) ? (w & 0xffff0000u) : (w << 16));
@@ -152,17 +137,9 @@ struct Coef8<float> {
     a = __ldcs(reinterpret_cast<const float4*>(p));
     b = __ldcs(reinterpret_cast<const float4*>(p) + 1);
   }
-  __device__ __forceinline__ void store(float* p) const {
-    __stcs(reinterpret_cast<float4*>(p), a);
-    __stcs(reinterpret_cast<float4*>(p) + 1, b);
-  }
   __device__ __forceinline__ void zero() {
     a = make_float4(0.f, 0.f, 0.f, 0.f);
     b = a;
-  }
-  __device__ __forceinline__ void pack(const float (&x)[LPT]) {
-    a = make_float4(x[0], x[1], x[2], x[3]);
-    b = make_float4(x[4], x[5], x[6], x[7]);
   }
   __device__ __forceinline__ float operator[](int l) const {
     const float4& q = l < 4 ? a : b;
@@ -171,41 +148,24 @@ struct Coef8<float> {
   }
 };
 
-// The coefficient pair of one queued valid pair, rounded to the block
-// dtype: two bfloat16 in the queue's own word, or two floats, the second QN
-// words further.
-__device__ __forceinline__ void put_pair(float* q, int e, int, float s1,
-                                         float s2, __nv_bfloat16*) {
-  reinterpret_cast<unsigned*>(q)[e] =
-      (unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(s1)) |
-      ((unsigned)__bfloat16_as_ushort(__float2bfloat16_rn(s2)) << 16);
-}
-__device__ __forceinline__ void put_pair(float* q, int e, int qn, float s1,
-                                         float s2, float*) {
-  q[e] = s1;
-  q[e + qn] = s2;
-}
-__device__ __forceinline__ void get_pair(const float* q, int e, int,
-                                         float& s1, float& s2,
-                                         __nv_bfloat16*) {
-  const unsigned w = reinterpret_cast<const unsigned*>(q)[e];
-  s1 = __uint_as_float(w << 16);
-  s2 = __uint_as_float(w & 0xffff0000u);
-}
-__device__ __forceinline__ void get_pair(const float* q, int e, int qn,
-                                         float& s1, float& s2, float*) {
-  s1 = q[e];
-  s2 = q[e + qn];
-}
-
-// The two Clenshaw recurrences of chebyshev.eval_pair_functions on the
-// coefficient rows c1 and c1 + n, rounded step by step as they are there
-// (no fused multiply-add), so that the build's float32 coefficients are the
-// plain build's.  On the H100 those roundings cost 0.044 ms of a build_mv
-// before the pair functions were confined to valid pairs
-// (pse_tpu_torch/ab.py --contract times them against contracted FMAs).
-__device__ __forceinline__ void clenshaw2(const float* c1, float t, int n,
-                                          float& uf1, float& uf2) {
+// The pair functions of chebyshev.eval_pair_functions at a valid d^2 as the
+// build stores them, (imrr, bco / d^2): the two Clenshaw recurrences on the
+// coefficient rows of the piece, rounded step by step as they are there (no
+// fused multiply-add), and the two true divisions, so that the float32
+// build is the plain build bit for bit.  On the H100 those roundings cost
+// 0.044 ms of a build_mv before the pair functions were confined to valid
+// pairs (pse_tpu_torch/ab.py --contract times them against contracted
+// FMAs).
+// NC: the number of coefficients, or 0 to take n.
+template <int NC>
+__device__ __forceinline__ void pair_coefs(const float* cf, int n, float mid,
+                                           float d2, float& s1, float& s2) {
+  if (NC > 0) n = NC;
+  const float dist = sqrtf(d2);
+  const bool in_lo = dist < mid;
+  const float* ab = cf + (in_lo ? 0 : 2);
+  const float t = (2.f * dist - ab[0]) / ab[1];
+  const float* c1 = cf + 4 + (in_lo ? 0 : 2 * n);
   const float* c2 = c1 + n;
   const float t2 = 2.f * t;
   float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
@@ -218,8 +178,10 @@ __device__ __forceinline__ void clenshaw2(const float* c1, float t, int n,
     b2 = b1;
     b1 = nb;
   }
-  uf1 = __fsub_rn(__fadd_rn(c1[0], __fmul_rn(t, a1)), a2);
-  uf2 = __fsub_rn(__fadd_rn(c2[0], __fmul_rn(t, b1)), b2);
+  const float uf1 = __fsub_rn(__fadd_rn(c1[0], __fmul_rn(t, a1)), a2);
+  const float uf2 = __fsub_rn(__fadd_rn(c2[0], __fmul_rn(t, b1)), b2);
+  s1 = uf1;
+  s2 = (uf2 - uf1) / d2;
 }
 
 // Own rows staged per pass of tiles: the P = THREADS / G tiles that run at
@@ -228,34 +190,44 @@ __host__ __device__ __forceinline__ int pass_rows(int G, int T, int R) {
   return (THREADS / G < T ? THREADS / G : T) * R;
 }
 
-// A tile group's scratch: its window's 3 + NF rows of G LPT lanes (and the
-// mask row when it builds), which the forward sums of a load group (RG NF G
-// <= NF G LPT / 2 floats), the build's queue (RG G LPT pairs, 4 G LPT
-// floats) and then the transposed partials (NF rows) reuse; one row of
-// padding when several groups share a warp.
+// A tile group's scratch.  The matvec: its window's 3 + NF rows of G LPT
+// lanes, which the forward sums of a load group (RG NF G <= NF G LPT / 2
+// floats) and then the transposed partials (NF rows) reuse.  The build
+// (nf = 0, a_bytes the block dtype's size, RG = 8 / a_bytes rows at a
+// time): its window's 4 rows (x, y, z, mask), then a queue of RG G LPT
+// valid pairs (d^2 and destination) and the RG rows' two A planes staged
+// in the block dtype.  One row of padding when several groups share a
+// warp.
 __host__ __device__ __forceinline__ int group_floats(int nf, int G,
-                                                     bool build) {
-  return (3 + nf + (build ? 1 : 0)) * G * LPT + (G < 32 ? G : 0);
+                                                     int a_bytes) {
+  const int GL = G * LPT, pad = G < 32 ? G : 0;
+  if (nf > 0) return (3 + nf) * GL + pad;
+  const int rg = 8 / a_bytes;
+  return 2 * rg * GL + rg * GL * a_bytes / 2 + pad;
 }
 
 // Shared memory floats: a pass's own (x, y, z, mask) and NRHS (f, 0) rows
 // as float4, the rank accumulator, the P tile groups' scratch, the
 // per-tile j0 and zsh, and the build's Chebyshev operand.
-size_t smem_floats(int nrhs, int S, int W, int T, int G, int R, bool build,
+size_t smem_floats(int nrhs, int S, int W, int T, int G, int R, int a_bytes,
                    int n_coef) {
   const int nf = 3 * nrhs;
   return 4 * (size_t)(1 + nrhs) * pass_rows(G, T, R) +
          (size_t)nf * (S + W) +
-         (size_t)(THREADS / G) * group_floats(nf, G, build) + 2 * (size_t)T +
-         (build ? 4 + 4 * (size_t)n_coef : 0);
+         (size_t)(THREADS / G) * group_floats(nf, G, a_bytes) +
+         2 * (size_t)T + (nrhs == 0 ? 4 + 4 * (size_t)n_coef : 0);
 }
 
-template <int NRHS, typename AT, bool TR, bool BUILD>
+// One block's work, (column c, stored offset h): the matvec on NRHS > 0
+// right-hand sides, or with NRHS = 0 the build of A.
+template <int NRHS, typename AT, bool TR, int NC>
 __device__ __forceinline__ void column_block(const Band& b, float* smem,
                                              const int c, const int h) {
+  constexpr bool BUILD = NRHS == 0;
   constexpr int NF = 3 * NRHS;
   constexpr int NX = NF > 0 ? NF : 1;          // register array extent
   constexpr int RG = sizeof(AT) == 2 ? 4 : 2;  // rows per load group
+  constexpr int V = LPT * sizeof(AT) / 16;     // 16-byte words per segment
   const int S = b.S, W = b.W, R = b.R, T = b.T, G = b.G;
   const int SW = S + W, P = THREADS / G, GL = G * LPT;
   const int PR = pass_rows(G, T, R);
@@ -279,7 +251,7 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
   float4* ownp = reinterpret_cast<float4*>(smem);          // PR
   float4* ownf = ownp + PR;                                 // NRHS x PR
   float* acc = reinterpret_cast<float*>(ownf + NRHS * PR);  // NF x SW
-  const int WS = group_floats(NF, G, BUILD);
+  const int WS = group_floats(NF, G, sizeof(AT));
   float* scr = acc + NF * SW;                                // P x WS
   int* tj0 = reinterpret_cast<int*>(scr + P * WS);           // T
   float* tzs = reinterpret_cast<float*>(tj0 + T);            // T
@@ -332,8 +304,13 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
   const int p = tid / G, g = tid % G, w0 = g * LPT;
   float* grp = scr + p * WS;  // this tile group's scratch
   const bool lanes = w0 < W;  // W = 192 leaves a quarter of the group idle
+  // the threads that meet at the tile group's warp-level operations: the
+  // group, or in the build the whole warp (its groups of tiles past the
+  // occupied ones run with no valid pair, so that every shuffle and
+  // __syncwarp takes the full warp)
   const unsigned gmask =
-      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((tid & 31) & ~(G - 1));
+      BUILD || G == 32 ? 0xffffffffu
+                       : ((1u << G) - 1u) << ((tid & 31) & ~(G - 1));
 
   for (int t0 = 0; t0 < Tv; t0 += P) {
     if (t0 > 0) {  // the last pass is done with its own rows
@@ -343,9 +320,9 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
     }
     const int t = t0 + p;
     const bool live = t < Tv;  // the same for the G threads of a tile
-    if (live) {
-      const int j0 = tj0[t];
-      const float zs = tzs[t];
+    if (BUILD ? t0 + (tid & ~31) / G < Tv : live) {
+      const int j0 = tj0[min(t, T - 1)];
+      const float zs = tzs[min(t, T - 1)];
       AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
                  (long long)h * W + w0;
       AT* a_bq = a_im + (long long)S * a_row;
@@ -368,6 +345,7 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
       // one period up
 #pragma unroll
       for (int m = 0; m < LPT; ++m) {
+        if (!live) break;
         const int wl = g + G * m;
         const int q = min(j0 + wl, SW - 1);
         const bool wrap = q >= nv;
@@ -379,8 +357,7 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
 #pragma unroll
         for (int k = 0; k < NF; ++k)
           grp[(3 + k) * GL + wl] = __ldg(b.f + k * CS + o);
-        if (BUILD)
-          grp[(3 + NF) * GL + wl] = wl < nv ? __ldg(b.mask + o) : 0.f;
+        if (BUILD) grp[3 * GL + wl] = wl < nv ? __ldg(b.mask + o) : 0.f;
       }
       __syncwarp(gmask);
       // this thread's LPT lanes of each row, two 16-byte loads a row
@@ -401,30 +378,46 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
 #pragma unroll
         for (int l = 0; l < LPT; ++l) tp[k][l] = 0.f;
       }
-      unsigned mwb = 0;  // the occupied lanes of this thread (build)
       if (BUILD) {
         float mw[LPT];
-        lanes8(mw, 3 + NF);
+        lanes8(mw, 3);
+        unsigned mwb = 0;  // this thread's occupied lanes
 #pragma unroll
-        for (int l = 0; l < LPT; ++l) mwb |= (lanes && mw[l] > 0.f) << l;
-      }
-      __syncwarp(gmask);  // the scratch holds the row sums from here
-      float* redp = grp;
-      float* queue = grp + RG * NF * G;  // the build's valid pairs
-      const int QN = RG * GL;            // its capacity
-      const int rb = j0 + w0;            // rank of this thread's lane 0
-      for (int i0 = 0; i0 < R; i0 += RG) {
-        int qb[RG];       // the build: this thread's first queue entry
-        unsigned vb[RG];  // and its valid lanes, per row
-        if (BUILD) {
-          // every pair's geometry and validity; the valid pairs' d^2 go to
-          // the group's queue, each thread's in lane order after those of
-          // the threads before it
+        for (int l = 0; l < LPT; ++l)
+          mwb |= (live && lanes && mw[l] > 0.f) << l;
+        __syncwarp(gmask);  // the scratch holds the queue from here
+        // the queue: each valid pair's d^2 and its destination, the lane
+        // index in the staged planes of the RG rows
+        float2* queue = reinterpret_cast<float2*>(grp);
+        AT* stg = reinterpret_cast<AT*>(grp + 2 * RG * GL);
+        const int rb = j0 + w0;  // rank of this thread's lane 0
+        const unsigned lane = tid & 31;
+        const unsigned gbits =
+            G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+        const unsigned before = gbits & ((1u << lane) - 1u);
+        for (int i0 = 0; i0 < R; i0 += RG) {
+          // every pair's geometry and validity; the valid pairs go to the
+          // queue, each thread's in lane order after those of the threads
+          // before it; this thread's staged lanes start at zero
           int n = 0;  // entries the group has queued
 #pragma unroll
           for (int rr = 0; rr < RG; ++rr) {
+#pragma unroll
+            for (int k = 0; k < 2; ++k)
+#pragma unroll
+              for (int v = 0; v < V; ++v)
+                reinterpret_cast<uint4*>(stg + (k * RG + rr) * GL + w0)[v] =
+                    make_uint4(0u, 0u, 0u, 0u);
             const int i = t * R + i0 + rr;  // own slot
             const float4 pi = ownp[p * R + i0 + rr];
+            // lanes that may pair with row i: occupied, and at offset 0
+            // not its own slot (rank i, or rank i + nv one period up)
+            unsigned ok = pi.w > 0.f ? mwb : 0u;
+            if (h == 0) {
+              const int d = i - rb, e = i + nv - rb;
+              if (d >= 0 && d < LPT && i < nv) ok &= ~(1u << d);
+              if (e >= 0 && e < LPT) ok &= ~(1u << e);
+            }
             float d2[LPT];
             unsigned bits = 0;
 #pragma unroll
@@ -434,81 +427,68 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
               d2[l] = __fadd_rn(
                   __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                   __fmul_rn(dz, dz));
-              int j = rb + l;
-              j = j >= nv ? j - nv : j;
-              const bool valid = ((mwb >> l) & 1u) && pi.w > 0.f &&
-                                 d2[l] < b.cut2 && d2[l] >= b.dr2 &&
-                                 !(h == 0 && j == i);
-              bits |= (unsigned)valid << l;
+              bits |= (unsigned)(d2[l] < b.cut2 && d2[l] >= b.dr2) << l;
             }
+            bits &= ok;
+            // the group's prefix and total of the counts (0..8), from
+            // their bits
             const int cnt = __popc(bits);
-            int incl = cnt;  // inclusive prefix over the group's threads
-            for (int off = 1; off < G; off <<= 1) {
-              const int y = __shfl_up_sync(gmask, incl, off, G);
-              if (g >= off) incl += y;
+            int pos = n, tot = 0;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const unsigned vk = __ballot_sync(gmask, (cnt >> k) & 1);
+              pos += __popc(vk & before) << k;
+              tot += __popc(vk & gbits) << k;
             }
-            int pos = n + incl - cnt;
-            qb[rr] = pos;
-            vb[rr] = bits;
-            n += __shfl_sync(gmask, incl, G - 1, G);
+            n += tot;
 #pragma unroll
             for (int l = 0; l < LPT; ++l)
-              if ((bits >> l) & 1u) queue[pos++] = d2[l];
+              if ((bits >> l) & 1u)
+                queue[pos++] = make_float2(
+                    d2[l], __int_as_float(rr * GL + w0 + l));
           }
           __syncwarp(gmask);
-          // the pair functions over the queue, every thread of the group
-          // busy, rounded to the block dtype in place
-          for (int e = g; e < n; e += G) {
-            const float d2 = queue[e];
-            const float dist = sqrtf(d2);
-            const bool in_lo = dist < b.mid;
-            const float* ab = cf + (in_lo ? 0 : 2);
-            const float tt = (2.f * dist - ab[0]) / ab[1];
-            float uf1, uf2;
-            clenshaw2(cf + 4 + (in_lo ? 0 : 2 * nc), tt, nc, uf1, uf2);
-            put_pair(queue, e, QN, uf1, (uf2 - uf1) / d2, (AT*)nullptr);
+          // the pair functions over the queue, two entries per thread at a
+          // time, every thread of the group busy; the rounded coefficients
+          // go to their staged lanes
+          for (int e = g; e < n; e += 2 * G) {
+            const bool two = e + G < n;
+            const float2 qa = queue[e], qb = queue[two ? e + G : e];
+            float s1, s2, u1, u2;
+            pair_coefs<NC>(cf, nc, b.mid, qa.x, s1, s2);
+            pair_coefs<NC>(cf, nc, b.mid, qb.x, u1, u2);
+            const int da = __float_as_int(qa.y), db = __float_as_int(qb.y);
+            stg[da] = from_f32<AT>(s1);
+            stg[RG * GL + da] = from_f32<AT>(s2);
+            if (two) {
+              stg[db] = from_f32<AT>(u1);
+              stg[RG * GL + db] = from_f32<AT>(u2);
+            }
           }
           __syncwarp(gmask);
-        }
-        // row rr's coefficients: in the build read back from the queue,
-        // stored, and applied as the matvec applies the loaded ones
-        auto coefs = [&](int rr, Coef8<AT>& ci, Coef8<AT>& cb) {
-          if (!BUILD) {
-            ci = im[rr];
-            cb = bq[rr];
-            return;
-          }
-          float s1[LPT], s2[LPT];
-          int pos = qb[rr];
+          // this thread's staged lanes of the RG rows to A, both planes
+          if (live && lanes)
 #pragma unroll
-          for (int l = 0; l < LPT; ++l) {
-            s1[l] = 0.f;
-            s2[l] = 0.f;
-            if ((vb[rr] >> l) & 1u)
-              get_pair(queue, pos++, QN, s1[l], s2[l], (AT*)nullptr);
-          }
-          ci.pack(s1);
-          cb.pack(s2);
-          if (lanes) {
-            ci.store(a_im + (i0 + rr) * a_row);
-            cb.store(a_bq + (i0 + rr) * a_row);
-          }
-        };
-        if (NRHS == 0) {
+            for (int rr = 0; rr < RG; ++rr)
 #pragma unroll
-          for (int rr = 0; rr < RG; ++rr) {
-            Coef8<AT> ci, cb;
-            coefs(rr, ci, cb);
-          }
-          __syncwarp(gmask);  // the queue is free again
-          continue;
+              for (int v = 0; v < V; ++v) {
+                const uint4* src = reinterpret_cast<const uint4*>(
+                    stg + rr * GL + w0);
+                __stcs(reinterpret_cast<uint4*>(a_im + (i0 + rr) * a_row) + v,
+                       src[v]);
+                __stcs(reinterpret_cast<uint4*>(a_bq + (i0 + rr) * a_row) + v,
+                       src[RG * GL * sizeof(AT) / 16 + v]);
+              }
         }
+        continue;
+      }
+      __syncwarp(gmask);  // the scratch holds the row sums from here
+      float* redp = grp;
+      for (int i0 = 0; i0 < R; i0 += RG) {
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr) {
           const int i = p * R + i0 + rr;  // row t R + i0 + rr of the column
           const float4 pi = ownp[i];
-          Coef8<AT> ci, cb;
-          coefs(rr, ci, cb);
           float fi[NX], u[NX];
 #pragma unroll
           for (int r = 0; r < NRHS; ++r) {
@@ -521,7 +501,7 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
           for (int k = 0; k < NF; ++k) u[k] = 0.f;
 #pragma unroll
           for (int l = 0; l < LPT; ++l) {
-            const float F1 = ci[l], Bq = cb[l];
+            const float F1 = im[rr][l], Bq = bq[rr][l];
             const float dx = pi.x - xw[l], dy = pi.y - yw[l],
                         dz = pi.z - zw[l];
 #pragma unroll
@@ -565,7 +545,7 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
           fwd[(o % NF) * S + t * R + i0 + o / NF] = sum;
         }
         __syncwarp(gmask);
-        if (!BUILD && i0 + RG < R) load_rows(im, bq, i0 + RG);
+        if (i0 + RG < R) load_rows(im, bq, i0 + RG);
       }
       if (TR && lanes)
 #pragma unroll
@@ -609,8 +589,9 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
   }
 }
 
-// NRHS right-hand sides (0: the build alone); BUILD: build A, else read it
-template <int NRHS, typename AT, bool BUILD>
+// The matvec on NRHS = 1 or 2 right-hand sides, or with NRHS = 0 the build
+// (with NC Chebyshev coefficients, or 0 for any number)
+template <int NRHS, typename AT, int NC>
 __global__ void __launch_bounds__(THREADS, NRHS <= 1 ? 2 : 1)
     banded_kernel(Band b) {
   extern __shared__ float4 smem4[];
@@ -621,16 +602,16 @@ __global__ void __launch_bounds__(THREADS, NRHS <= 1 ? 2 : 1)
   const int item = blockIdx.x + C * blockIdx.y;
   const int c = item % C, h = item < (N_HALF - 1) * C ? 1 + item / C : 0;
   if (NRHS > 0 && h > 0)
-    column_block<NRHS, AT, (NRHS > 0), BUILD>(b, smem, c, h);
+    column_block<NRHS, AT, (NRHS > 0), NC>(b, smem, c, h);
   else
-    column_block<NRHS, AT, false, BUILD>(b, smem, c, h);
+    column_block<NRHS, AT, false, NC>(b, smem, c, h);
 }
 
-template <int NRHS, typename AT, bool BUILD>
+template <int NRHS, typename AT, int NC = 0>
 cudaError_t launch(const Band& b, cudaStream_t stream) {
   const size_t smem = sizeof(float) * smem_floats(NRHS, b.S, b.W, b.T, b.G,
-                                                  b.R, BUILD, b.n_coef);
-  auto kernel = banded_kernel<NRHS, AT, BUILD>;
+                                                  b.R, sizeof(AT), b.n_coef);
+  auto kernel = banded_kernel<NRHS, AT, NC>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(b.ncx * b.ncy, N_HALF);
@@ -639,16 +620,14 @@ cudaError_t launch(const Band& b, cudaStream_t stream) {
 }
 
 template <typename AT>
-cudaError_t dispatch(bool build, int nrhs, const Band& b,
-                     cudaStream_t stream) {
-  if (!build) {
-    if (nrhs == 1) return launch<1, AT, false>(b, stream);
-    if (nrhs == 2) return launch<2, AT, false>(b, stream);
-    return cudaErrorInvalidValue;
-  }
-  if (nrhs == 0) return launch<0, AT, true>(b, stream);
-  if (nrhs == 1) return launch<1, AT, true>(b, stream);
-  if (nrhs == 2) return launch<2, AT, true>(b, stream);
+cudaError_t dispatch(int nrhs, const Band& b, cudaStream_t stream) {
+  // the build: the main path's degree-8 fits unrolled, any other degree
+  // through the general recurrence
+  if (nrhs == 0)
+    return b.n_coef == 9 ? launch<0, AT, 9>(b, stream)
+                         : launch<0, AT>(b, stream);
+  if (nrhs == 1) return launch<1, AT>(b, stream);
+  if (nrhs == 2) return launch<2, AT>(b, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -674,30 +653,30 @@ extern "C" int pse_banded_matvec(int nrhs, const float* px, const float* py,
                                  int R, int W, float Lx, float Ly, float Lz,
                                  float tilt, int a_bf16, const void* A,
                                  float* uo, cudaStream_t stream) {
-  if (!shapes_ok(S, R, W, A)) return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(S, R, W, A) || nrhs < 1 || nrhs > 2)
+    return (int)cudaErrorInvalidValue;
   const Band b{px,  py,  pz,  nullptr, f,      j0,  zsh,
                n_valid, nullptr, 0, 0.f, 0.f, 0.f, ncx,
                ncy, S,   R,   W,       S / R,  group_threads(W),
                Lx,  Ly,  Lz,  tilt,    const_cast<void*>(A), uo};
-  const cudaError_t e = a_bf16 ? dispatch<__nv_bfloat16>(false, nrhs, b, stream)
-                               : dispatch<float>(false, nrhs, b, stream);
+  const cudaError_t e = a_bf16 ? dispatch<__nv_bfloat16>(nrhs, b, stream)
+                               : dispatch<float>(nrhs, b, stream);
   return (int)e;
 }
 
-extern "C" int pse_banded(int mode, int nrhs, const float* px, const float* py,
-                          const float* pz, const float* mask, const float* f,
-                          const int* j0, const float* zsh, const int* n_valid,
-                          const float* cheb, int n_coef, float mid, float cut2,
-                          float dr2, int ncx, int ncy, int S, int R, int W,
-                          float Lx, float Ly, float Lz, float tilt, int a_bf16,
-                          void* A, float* uo, cudaStream_t stream) {
-  if (!shapes_ok(S, R, W, A) || (mode == MODE_BUILD) != (nrhs == 0) ||
-      mode < MODE_BUILD_MV || mode > MODE_BUILD)
-    return (int)cudaErrorInvalidValue;
-  const Band b{px,   py,   pz,  mask, f,     j0,  zsh, n_valid, cheb,
-               n_coef, mid, cut2, dr2, ncx, ncy, S,   R,   W,
-               S / R, group_threads(W), Lx, Ly, Lz,   tilt, A,   uo};
-  const cudaError_t e = a_bf16 ? dispatch<__nv_bfloat16>(true, nrhs, b, stream)
-                               : dispatch<float>(true, nrhs, b, stream);
+extern "C" int pse_banded_build(const float* px, const float* py,
+                                const float* pz, const float* mask,
+                                const int* j0, const float* zsh,
+                                const int* n_valid, const float* cheb,
+                                int n_coef, float mid, float cut2, float dr2,
+                                int ncx, int ncy, int S, int R, int W,
+                                float Lx, float Ly, float Lz, float tilt,
+                                int a_bf16, void* A, cudaStream_t stream) {
+  if (!shapes_ok(S, R, W, A)) return (int)cudaErrorInvalidValue;
+  const Band b{px,   py,   pz,  mask, nullptr, j0,  zsh, n_valid, cheb,
+               n_coef, mid, cut2, dr2, ncx,  ncy,  S,   R,   W,
+               S / R, group_threads(W), Lx, Ly, Lz,   tilt, A,   nullptr};
+  const cudaError_t e = a_bf16 ? dispatch<__nv_bfloat16>(0, b, stream)
+                               : dispatch<float>(0, b, stream);
   return (int)e;
 }

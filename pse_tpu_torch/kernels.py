@@ -38,8 +38,8 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "pse_fill_cells": [_P, _P, _P, _P, _P, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P],
-    "pse_banded": [_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F,
-                   _F, _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P, _P],
+    "pse_banded_build": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
+                         _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P],
     "pse_banded_matvec": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _F, _F, _F, _F, _I, _P, _P, _P],
     "pse_contract_col": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,

@@ -287,7 +287,8 @@ def _cheb_operand(cheb: ChebPair, device: str) -> torch.Tensor:
     return device_coeffs(cheb, device)
 
 
-# csrc/banded.cu modes
+# what _launch_banded launches: the build, then the matvec on the A it
+# wrote, or the build alone
 MODE_BUILD_MV, MODE_BUILD = 0, 1
 
 
@@ -324,14 +325,15 @@ def _band_operands(bins: CellBins, spec: BandSpec, j0, n_valid, zsh,
 def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
                    cheb: ChebPair, L, ewald_cut, ewald_dr, j0, n_valid, zsh,
                    f_cells=None):
-    """One build launch of csrc/banded.cu; returns (blocks, uo (C, 9, 3 nrhs,
-    S) or None, rc).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None in
+    """The build kernel of csrc/banded.cu and, in MODE_BUILD_MV, the matvec
+    kernel on the A it wrote; returns (blocks, uo (C, 9, 3 nrhs, S) or
+    None, rc).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None in
     MODE_BUILD."""
     if (f_cells is None) != (mode == MODE_BUILD):
         raise ValueError("banded kernels take right-hand sides unless they "
                          "only build")
-    xyz, f, nrhs, j0h, zsh, nv = _band_operands(bins, spec, j0, n_valid,
-                                                zsh, f_cells)
+    xyz, _, _, j0h, zsh5, nv = _band_operands(bins, spec, j0, n_valid, zsh,
+                                              f_cells)
     mask = bins.mask.to(torch.float32).contiguous()
     ncx, ncy, _ = spec.bins.n_cells
     C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
@@ -339,20 +341,20 @@ def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
     a_dtype = getattr(torch, spec.block_dtype)
     blocks = torch.empty((1, C, 2, S, N_HALF * W), dtype=a_dtype, device=dev)
     cheb_dev = _cheb_operand(cheb, str(dev))
-    uo = (None if nrhs == 0 else
-          torch.empty((C, 9, 3 * nrhs, S), dtype=torch.float32, device=dev))
     Lf = [float(np.float32(x)) for x in L]
     p = kernels.ptr
-    rc = kernels.library().pse_banded(
-        mode, nrhs, *(p(t) for t in xyz), p(mask), p(f), p(j0h), p(zsh),
-        p(nv),
+    rc = kernels.library().pse_banded_build(
+        *(p(t) for t in xyz), p(mask), p(j0h), p(zsh5), p(nv),
         p(cheb_dev), cheb.degree + 1, float(np.float32(cheb.mid)),
         float(np.float32(float(ewald_cut) ** 2)),
         float(np.float32(float(ewald_dr) ** 2)),
         ncx, ncy, S, R, W, *Lf, float(np.float32(tilt_xy)),
-        int(a_dtype == torch.bfloat16), p(blocks), p(uo),
-        kernels.stream_of(mask),
+        int(a_dtype == torch.bfloat16), p(blocks), kernels.stream_of(mask),
     )
+    if mode == MODE_BUILD or rc:
+        return blocks, None, rc
+    uo, rc = _launch_matvec(blocks, bins, tilt_xy, spec, L, j0, n_valid, zsh,
+                            f_cells)
     return blocks, uo, rc
 
 
@@ -400,8 +402,9 @@ def build_mv_banded(bins: CellBins, tilt_xy, spec: BandSpec, cheb: ChebPair,
                     L, ewald_cut, ewald_dr, j0, n_valid, zsh, f_cells,
                     self_mobility):
     """(blocks, u): build A (1, C, 2, S, 5W) in the block dtype and apply
-    the rounded coefficients to ``f_cells`` (3 nrhs, C, S), nrhs 1 or 2, in
-    the same kernel.
+    the rounded coefficients to ``f_cells`` (3 nrhs, C, S), nrhs 1 or 2:
+    the build kernel, then the matvec kernel on the A it wrote (one
+    operator for Lanczos: u is bitwise ``matvec_banded``'s on ``blocks``).
 
     On CPU tensors: (None, ``matvec_banded_reference`` per right-hand
     side); ``j0``/``zsh`` then cover all 9 offsets (the kernel reads the

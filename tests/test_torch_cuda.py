@@ -218,19 +218,18 @@ def test_build_at_empty_full_and_ragged_columns(cuda, dtype):
 
 
 @pytest.mark.parametrize("nrhs,window,rows,cap,Lz", [
-    (1, 128, 32, 12704, 400.0), (2, 256, 32, 5440, 400.0),
-    (2, 64, 16, 5024, 1600.0)])
+    (1, 128, 32, 13408, 400.0), (2, 256, 32, 5760, 400.0),
+    (2, 64, 16, 5360, 1600.0)])
 def test_matvec_at_the_largest_cap_build_mv_launches(cuda, nrhs, window,
                                                      rows, cap, Lz):
-    """build_mv's and the matvec's shared memory grow with S only by
-    their rank accumulator, and build_mv's fixed part is the matvec's plus
-    a mask row per tile group, so the matvec applies every A that build_mv
-    can build: at the largest cap S that build_mv's shared memory takes for
-    this window, row tile and number of right-hand sides (12,704 at one
-    RHS and W = 128, 5,024 at two RHS, W = 64 and R = 16: above the 5,440
-    and 3,408 of the build_mv that kept the whole column in shared memory),
-    in a tall box (24 x 24 x Lz, 12 columns of over 1000 particles, so
-    several passes of tiles per block), build_mv and the matvec against
+    """build_mv is the build kernel, whose shared memory does not grow with
+    S, then the matvec, whose shared memory grows with S only by its rank
+    accumulator: so build_mv launches up to the matvec's largest cap S for
+    this window, row tile and number of right-hand sides (13,408 at one RHS
+    and W = 128, 5,360 at two RHS, W = 64 and R = 16: above the 5,440 and
+    3,408 of the build_mv that kept the whole column in shared memory).
+    There, in a tall box (24 x 24 x Lz, 12 columns of over 1000 particles,
+    so several passes of tiles per block), build_mv and the matvec against
     the plain version, each other (bitwise) and a rerun (bitwise)."""
     L = (24.0, 24.0, Lz)
     n = 12 * (1200 if Lz == 400.0 else 1100)
