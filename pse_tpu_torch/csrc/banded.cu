@@ -1,23 +1,24 @@
-// Banded near-field mobility on the H100: the pair-coefficient build, alone
-// or fused with the first matvec, and the matvec that streams the stored
-// coefficients back, for one or two right-hand sides, in one block code.
+// Banded near-field mobility on the H100: the pair-coefficient build and
+// the matvec that streams the stored coefficients back to one or two
+// right-hand sides, two kernels of one block code.
 //
 // Replaces three Pallas kernels of pse_tpu/ops/banded_nearfield.py:
 //   * `_matvec_kernel` (:1147, launched by `matvec_banded`, :1392): u =
 //     M_real f from one read of the stored A;
+//   * `_build_kernel` (:733, launched by `build_banded_blocks`, :894): build
+//     A = (imrr, bco/d^2) over the half stencil (the TPU kernel's second
+//     output, the prefolded coordinates pos_cyc, feeds only its MXU matvec
+//     and has no counterpart);
 //   * `_build_mv_kernel` (:1472, launched by `build_mv_banded`, :1693): build
-//     A = (imrr, bco/d^2) over the half stencil and apply it at once;
-//   * `_build_kernel` (:733, launched by `build_banded_blocks`, :894): the
-//     build alone (no right-hand side; the TPU kernel's second output, the
-//     prefolded coordinates pos_cyc, feeds only its MXU matvec and has no
-//     counterpart).
-// The build writes the same A in every mode (its plain version is
-// `build_banded_blocks_reference`, which the float32 build equals bit for
-// bit); build_mv applies the A it has just rounded to the block dtype with
-// the matvec's own code, so its u is bitwise the matvec's u on that A and
-// Lanczos sees one operator.  With NRHS = 2 (f (6, C, S), the forces and
-// the first Lanczos vector of a with-forces step) each A element is built
-// or read once and applied to both right-hand sides.
+//     A and apply it at once.  Here that is the build kernel, then the matvec
+//     kernel on the A it wrote (banded_nearfield._launch_banded): a version
+//     that built each row group in the matvec's loop and applied it from
+//     registers kept the matvec's window and sums live through the build,
+//     spilled, and timed slower on the H100 at one and two right-hand sides
+//     (PERF.md, PR 7).  So build_mv's u is the matvec's u on its A, bit for
+//     bit, and Lanczos sees one operator.
+// The float32 build equals its plain version `build_banded_blocks_reference`
+// bit for bit; a bfloat16 A is that float32 A rounded once.
 //
 // Semantics (one block per (column c, stored offset h), h in 0..4):
 //   * the neighbour column is c + (OX[h], OY[h]) on the periodic column grid;
@@ -38,53 +39,57 @@
 //     the transposed ones onto their target columns
 //     (banded_nearfield._finish_u).
 //
-// What bounds it on the H100: A.  At bench scale (C = 216, S = 576, R = 32,
-// W = 128, bf16) A is 318.5 MB, >= 95 us at 3.35 TB/s, written by the build
-// and read by the matvec.  The pair arithmetic is of the same order on the
-// CUDA cores: ~25 float32 instructions per stored pair and right-hand side,
-// forward and transposed, over the ~66 M pairs of the non-empty tiles; the
-// geometry and validity test of each pair (~15); and for the ~5 M valid
-// pairs (nonzero A) the pair functions, a square root, two IEEE divisions
-// and two degree-8 Clenshaw recurrences rounded step by step (~90).  The
-// design:
+// What bounds them on the H100: A.  At bench scale (C = 216, S = 576, R =
+// 32, W = 128, bf16) A is 318.5 MB, >= 95 us at 3.35 TB/s, written by the
+// build and read by the matvec.  The arithmetic is of the same order on the
+// CUDA cores: the matvec's ~25 float32 instructions per stored pair and
+// right-hand side, forward and transposed, over the ~66 M pairs of the
+// non-empty tiles; the build's geometry and validity test of each of those
+// pairs (~12), and for the ~5 M valid ones (nonzero A) the pair functions:
+// a square root, two IEEE divisions and two degree-8 Clenshaw recurrences
+// rounded step by step (~100).  The design:
 //   * tiles past ceil(n_valid[c] / R) hold no occupied row, so their A and
 //     f rows are zero: the matvec skips them, the build writes their A rows
 //     as zeros (16-byte stores), and their forward rows are written as zeros
 //     (~17 % of A at bench scale);
-//   * a thread owns LPT = 8 window lanes of one tile for all R rows: one
-//     16-byte load or store per A plane and row (two at float32), RG rows at
-//     a time; the lanes' window coordinates and f sit in registers, so the
-//     transposed sums stay in registers over the tile;
-//   * the build is a producer stage of the same loop: for RG rows it tests
-//     every pair, queues the d^2 of the valid ones in the tile group's
-//     scratch (a prefix sum over the group's threads), evaluates the pair
-//     functions over the queue with every thread of the group busy (a
-//     branch per pair would run the Clenshaw whenever any lane of the warp
-//     needs it, nearly always), reads the rounded coefficients back into the
-//     registers the matvec would have loaded, stores them, and applies them
-//     with the matvec's code;
+//   * a thread owns LPT = 8 window lanes of one tile for all R rows, RG rows
+//     at a time: one 16-byte load or store per A plane and row (two at
+//     float32); the lanes' window coordinates and f sit in registers, so the
+//     matvec's transposed sums stay in registers over the tile;
 //   * G = W / 8 (rounded up to a power of two) threads cover a tile's
-//     lanes and THREADS / G tiles run at once; each thread writes its RG
-//     rows' forward partial sums to shared memory, and after a __syncwarp
-//     one thread per (row, component) sums the G partials in thread order
-//     (fewer shared-memory operations than a shuffle butterfly per row,
-//     which timed markedly slower);
-//   * the block stages the own rows (x, y, z, mask, f) of each pass of tiles
-//     in shared memory; each tile group loads its window (neighbour slot by
-//     rank, the wrap's z + Lz applied) from global memory in coalesced
-//     rows into its own scratch, from which a thread reads its lanes in
-//     16-byte loads; the same scratch then holds the group's row sums, its
-//     queue of valid pairs and its transposed partials.  After each pass
-//     the tiles' partials are added into the rank accumulator in tile order
-//     by one thread per rank.  No float atomics: reruns are bitwise equal;
-//   * shared memory grows with S only by the rank accumulator, 3 NRHS
-//     (S + W) floats, beside a fixed part: the matvec and build_mv launch
-//     at the same S within one window's worth of mask rows (the limits are
-//     in tests/test_torch_cuda.py);
+//     lanes and THREADS / G tiles run at once; the block stages the own
+//     rows (x, y, z, mask, f) of each pass of tiles in shared memory; each
+//     tile group loads its window (neighbour slot by rank, the wrap's z +
+//     Lz applied) from global memory in coalesced rows into its own
+//     scratch, from which a thread reads its lanes in 16-byte loads;
+//   * the build computes the pair functions only where a pair is valid (a
+//     branch per pair would run them whenever any lane of the warp needs
+//     them, nearly always): for RG rows it tests every pair, queues the
+//     valid ones (d^2 and destination) in its group's scratch, each
+//     thread's in lane order at a prefix of the group's counts taken from
+//     ballots of their bits, evaluates the queue two entries per thread with
+//     every thread busy (the main path's nine coefficients unrolled), writes
+//     the rounded coefficients into the RG rows staged in shared memory
+//     (zeros elsewhere), and stores each thread's lanes with 16-byte stores.
+//     Every shuffle, ballot and __syncwarp takes the whole warp: the groups
+//     of tiles past the occupied ones run along with no valid pair;
+//   * the matvec's forward row sums: each thread writes its RG rows' partial
+//     sums to its group's scratch, and after a __syncwarp one thread per
+//     (row, component) sums the G partials in thread order (fewer
+//     shared-memory operations than a shuffle butterfly per row, which
+//     timed markedly slower); its transposed partials go through the same
+//     scratch, and after each pass of tiles they are added into the rank
+//     accumulator in tile order by one thread per rank.  No float atomics:
+//     reruns are bitwise equal;
+//   * the build's shared memory does not grow with S; the matvec's grows
+//     only by the rank accumulator, 3 NRHS (S + W) floats, beside at most
+//     81 KB (one RHS) or 121 KB (two) of fixed size: it launches at S up to
+//     12,128 or more with one RHS and 4,384 or more with two (W = 64, R =
+//     32), and so does build_mv;
 //   * the blocks with a transposed half run first and the lighter h = 0
 //     blocks last, where they fill the grid's last wave (1080 blocks, two
-//     per SM at the bench shapes with one RHS).
-// Its H100 times are in PERF.md.
+//     per SM at the bench shapes with one RHS or none).
+// Their H100 times and resources are in PERF.md.
 #include "common.cuh"
 
 namespace {

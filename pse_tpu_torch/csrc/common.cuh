@@ -6,12 +6,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// Element loads/stores for the two storage types of coefficient arrays.
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
+// Element stores for the two storage types of coefficient arrays.
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -19,12 +14,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// Round a float32 value through the storage type T (identity for float).
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_f32(from_f32<T>(x));
 }
 
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.
