@@ -50,10 +50,10 @@ def _rel(a, b):
     return float(torch.linalg.norm(a - b) / torch.linalg.norm(b))
 
 
-def _setup(n, L, tilt, seed=0):
+def _setup(n, L, tilt, seed=0, **config):
     params = make_params(xi=0.5, error=1e-3, L=L)
     cfg = pi.make_config(params, n, engine="banded", has_forces=False,
-                         device="cuda")
+                         device="cuda", **config)
     rng = np.random.default_rng(seed)
     pos = torch.as_tensor(
         rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32),
@@ -183,10 +183,13 @@ def test_build_at_empty_full_and_ragged_columns(cuda, dtype):
     sides and the build alone write the same A, bitwise the plain build
     (the build rounds as its plain version does, then to the block dtype),
     zero in every row of an empty tile; build_mv's u is bitwise the
-    matvec's on that A and within the bound of the plain version."""
-    cfg, pos, box = _setup(5300, 40.0, 0.2)
+    matvec's on that A and within the bound of the plain version.  Each
+    dtype with its own pair-function fit: degree 8 at bfloat16 (the
+    unrolled recurrence), degree 12 at float32 (the general one)."""
+    cfg, pos, box = _setup(5300, 40.0, 0.2, block_dtype=dtype)
+    assert cfg.cheb.degree == (8 if dtype == "bfloat16" else 12)
     p = cfg.params
-    bs = cfg.band_spec._replace(block_dtype=dtype)
+    bs = cfg.band_spec
     pos, (c0, c1, c2) = _cut_columns(pos, box, bs)
     bins = bin_columns(pos, box, bs.bins)
     j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
