@@ -38,7 +38,7 @@ Phases (each failure makes the script exit non-zero without the result line):
             float32 plain build, the float32 build bitwise; contract <= 1e-5
             (float32) and <= 5e-3 (bfloat16); spread <= 1e-5 (float32) and
             <= 1e-4 (bfloat16) (max |diff| / max |plain|); build_mv u vs
-            matvec u <= 1e-6 and bitwise (one accumulation code); matvec
+            matvec u <= 1e-6 and bitwise (build_mv ends in the matvec); matvec
             (one and two right-hand sides), spread and contract reruns
             bitwise equal;
   [timing]  CUDA-event times of each kernel wrapper and its plain version,
@@ -46,12 +46,12 @@ Phases (each failure makes the script exit non-zero without the result line):
             operations at the peak rate of their type), and torch.bmm as the
             library yardstick of the spread (wxy with a pre-built X) and of
             the contract (the pre-gathered windows with wxy), printed as one
-            JSON line; the banded kernels also as their kernel launch alone
-            (CUDA-graph replay, without the wrapper's torch work): the
-            matvec, build_mv at two right-hand sides (one beside it) and the
-            build alone; the matvec's bound counts the A rows of the
-            non-empty tiles, the ones the kernel reads, and the bound of all
-            of A is kept beside it;
+            JSON line; the banded kernels also as their kernel launches
+            alone (CUDA-graph replay, without the wrapper's torch work): the
+            matvec, build_mv at two right-hand sides (one beside it: the
+            build and the matvec) and the build alone; the matvec's bound
+            counts the A rows of the non-empty tiles, the ones the kernel
+            reads, and the bound of all of A is kept beside it;
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -605,8 +605,7 @@ def phase_kernels(ph, sim, results):
                          f"(bitwise {bool(torch.equal(two, one))})", r, 1e-4)
             ph.check(f"build_mv u vs matvec u {dtype} tilt={tilt}",
                      rel_max(u_m, u_b)[0], 1e-6)
-            # one accumulation code: build_mv applies the A it stores as the
-            # matvec applies it, in the same order
+            # build_mv is the build kernel, then the matvec kernel on its A
             ph.check(f"build_mv u vs matvec u {dtype} tilt={tilt} "
                      "(mismatched elements)", int((u_m != u_b).sum()), 0)
             for fk, got, nrhs in ((f, u_m, 1), (torch.cat([f, f2]), u_mm, 2)):
