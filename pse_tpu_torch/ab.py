@@ -33,13 +33,14 @@ equality), and each side's build-alone A against its build_mv A and its
 build_mv u against its own matvec's u on that A.  Each of the three is
 timed at tilt 0.3, bfloat16, as the wrapper by CUDA events and as its
 kernel launches alone (``_launch_banded``: in checkouts where build_mv is
-the build kernel and then the matvec kernel, both) by CUDA-graph replay.  With ``--contract`` a third
-library is built whose build rounds with plain (contractible) arithmetic
-in place of its explicit ``__fmul_rn``, ``__fadd_rn`` and ``__fsub_rn``,
-which nvcc contracts into fused multiply-adds; it is timed beside the
-others, and this checkout's float32 build and the contracted one are held
-against the plain build (max |diff| / max |plain|) at the main path's
-shapes and at the small configurations of tests/test_torch_cuda.py.
+the build kernel and then the matvec kernel, both) by CUDA-graph replay.
+With ``--contract`` a third library is built whose build rounds with
+plain (contractible) arithmetic in place of its explicit ``__fmul_rn``,
+``__fadd_rn`` and ``__fsub_rn``, which nvcc contracts into fused
+multiply-adds; it is timed beside the others, and this checkout's float32
+build and the contracted one are held against the plain build (max |diff|
+/ max |plain|) at the main path's shapes and at the small configurations
+of tests/test_torch_cuda.py.
 
 ``--only far|matvec|build`` (repeatable) runs only those parts.
 
