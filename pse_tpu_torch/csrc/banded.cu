@@ -1,6 +1,6 @@
 // Banded near-field mobility on the H100: the pair-coefficient build and
 // the matvec that streams the stored coefficients back to one or two
-// right-hand sides, two kernels of one block code.
+// right-hand sides: two kernels that share their tile layout.
 //
 // Replaces three Pallas kernels of pse_tpu/ops/banded_nearfield.py:
 //   * `_matvec_kernel` (:1147, launched by `matvec_banded`, :1392): u =
@@ -11,16 +11,15 @@
 //     and has no counterpart);
 //   * `_build_mv_kernel` (:1472, launched by `build_mv_banded`, :1693): build
 //     A and apply it at once.  Here that is the build kernel, then the matvec
-//     kernel on the A it wrote (banded_nearfield._launch_banded): a version
-//     that built each row group in the matvec's loop and applied it from
-//     registers kept the matvec's window and sums live through the build,
-//     spilled, and timed slower on the H100 at one and two right-hand sides
-//     (PERF.md, PR 7).  So build_mv's u is the matvec's u on its A, bit for
-//     bit, and Lanczos sees one operator.
+//     kernel on the A it wrote (banded_nearfield._launch_banded): versions
+//     that built each tile inside the matvec's block kept its registers and
+//     shared memory and timed slower on the H100 at one and two right-hand
+//     sides (PERF.md, PR 7).  So build_mv's u is the matvec's u on its A,
+//     bit for bit, and Lanczos sees one operator.
 // The float32 build equals its plain version `build_banded_blocks_reference`
 // bit for bit; a bfloat16 A is that float32 A rounded once.
 //
-// Semantics (one block per (column c, stored offset h), h in 0..4):
+// Semantics (per column c and stored offset h, h in 0..4):
 //   * the neighbour column is c + (OX[h], OY[h]) on the periodic column grid;
 //     its xy image shift at the grid edge includes the tilt:
 //     sx = wx*Lx + tilt*sy, sy = wy*Ly;
@@ -49,46 +48,44 @@
 // a square root, two IEEE divisions and two degree-8 Clenshaw recurrences
 // rounded step by step (~100).  The design:
 //   * tiles past ceil(n_valid[c] / R) hold no occupied row, so their A and
-//     f rows are zero: the matvec skips them, the build writes their A rows
-//     as zeros (16-byte stores), and their forward rows are written as zeros
-//     (~17 % of A at bench scale);
+//     f rows are zero: the matvec skips them and writes their forward rows
+//     as zeros, the build stores their A rows as zeros (~17 % of A at bench
+//     scale);
 //   * a thread owns LPT = 8 window lanes of one tile for all R rows, RG rows
 //     at a time: one 16-byte load or store per A plane and row (two at
-//     float32); the lanes' window coordinates and f sit in registers, so the
-//     matvec's transposed sums stay in registers over the tile;
-//   * G = W / 8 (rounded up to a power of two) threads cover a tile's
-//     lanes and THREADS / G tiles run at once; the block stages the own
-//     rows (x, y, z, mask, f) of each pass of tiles in shared memory; each
-//     tile group loads its window (neighbour slot by rank, the wrap's z +
-//     Lz applied) from global memory in coalesced rows into its own
-//     scratch, from which a thread reads its lanes in 16-byte loads;
-//   * the build computes the pair functions only where a pair is valid (a
-//     branch per pair would run them whenever any lane of the warp needs
-//     them, nearly always): for RG rows it tests every pair, queues the
-//     valid ones (d^2 and destination) in its group's scratch, each
-//     thread's in lane order at a prefix of the group's counts taken from
-//     ballots of their bits, evaluates the queue two entries per thread with
-//     every thread busy (the main path's nine coefficients unrolled), writes
-//     the rounded coefficients into the RG rows staged in shared memory
-//     (zeros elsewhere), and stores each thread's lanes with 16-byte stores.
-//     Every shuffle, ballot and __syncwarp takes the whole warp: the groups
-//     of tiles past the occupied ones run along with no valid pair;
-//   * the matvec's forward row sums: each thread writes its RG rows' partial
-//     sums to its group's scratch, and after a __syncwarp one thread per
-//     (row, component) sums the G partials in thread order (fewer
-//     shared-memory operations than a shuffle butterfly per row, which
-//     timed markedly slower); its transposed partials go through the same
-//     scratch, and after each pass of tiles they are added into the rank
-//     accumulator in tile order by one thread per rank.  No float atomics:
-//     reruns are bitwise equal;
-//   * the build's shared memory does not grow with S; the matvec's grows
-//     only by the rank accumulator, 3 NRHS (S + W) floats, beside at most
-//     81 KB (one RHS) or 121 KB (two) of fixed size: it launches at S up to
-//     12,128 or more with one RHS and 4,384 or more with two (W = 64, R =
-//     32), and so does build_mv;
-//   * the blocks with a transposed half run first and the lighter h = 0
-//     blocks last, where they fill the grid's last wave (1080 blocks, two
-//     per SM at the bench shapes with one RHS or none).
+//     float32); G = W / 8 (rounded up to a power of two) threads cover a
+//     tile's lanes, and each tile group loads its window (neighbour slot by
+//     rank, the wrap's z + Lz applied) from global memory in coalesced rows
+//     into its own shared-memory scratch, from which a thread reads its
+//     lanes in 16-byte loads into registers;
+//   * the matvec (PR 6's): one block per (column c, offset h), the own rows
+//     of each pass of THREADS / G tiles staged in shared memory, the lanes'
+//     f in registers so the transposed sums stay in registers over the
+//     tile; each thread writes its RG rows' forward partial sums to its
+//     group's scratch, and after a __syncwarp one thread per (row,
+//     component) sums the G partials in thread order (fewer shared-memory
+//     operations than a shuffle butterfly per row, which timed markedly
+//     slower); after each pass the tiles' transposed partials are added into
+//     the rank accumulator in tile order by one thread per rank.  No float
+//     atomics: reruns are bitwise equal.  Its shared memory grows with S
+//     only by that accumulator, 3 NRHS (S + W) floats, beside at most 81 KB
+//     (one RHS) or 121 KB (two): it launches at S up to 12,128 or more with
+//     one RHS and 4,384 or more with two (W = 64, R = 32).  The blocks with
+//     a transposed half run first and the lighter h = 0 blocks last, where
+//     they fill the grid's last wave;
+//   * the build runs on a grid of tiles: each tile group takes one (offset,
+//     column, tile), so blocks are of one size (per (column, offset) they
+//     left a long last wave: 0.19 against 0.145 ms, PERF.md, PR 7), and its
+//     shared memory does not grow with S.  It computes the pair functions
+//     only where a pair is valid (a branch per pair would run them whenever
+//     any lane of the warp needs them, nearly always): for RG rows it tests
+//     every pair, queues the valid ones (d^2 and destination) in its
+//     group's scratch, each thread's in lane order at a prefix of the
+//     group's counts taken from ballots of their bits, evaluates the queue
+//     two entries per thread with every thread busy (the main path's nine
+//     coefficients unrolled), writes the rounded coefficients into the RG
+//     rows staged in shared memory (zeros elsewhere), and stores each
+//     thread's lanes with 16-byte stores.
 // Their H100 times and resources are in PERF.md.
 #include "common.cuh"
 
@@ -98,7 +95,6 @@ constexpr int N_HALF = 5;
 constexpr int THREADS = 256;
 constexpr int LPT = 8;  // window lanes per thread
 
-// (0,0) then the positive half stencil (banded_nearfield.full_xy_offsets)
 __constant__ int OX[N_HALF] = {0, 0, 1, 1, 1};
 __constant__ int OY[N_HALF] = {0, 1, -1, 0, 1};
 
@@ -153,86 +149,35 @@ struct Coef8<float> {
   }
 };
 
-// The pair functions of chebyshev.eval_pair_functions at a valid d^2 as the
-// build stores them, (imrr, bco / d^2): the two Clenshaw recurrences on the
-// coefficient rows of the piece, rounded step by step as they are there (no
-// fused multiply-add), and the two true divisions, so that the float32
-// build is the plain build bit for bit.  On the H100 those roundings cost
-// 0.044 ms of a build_mv before the pair functions were confined to valid
-// pairs (pse_tpu_torch/ab.py --contract times them against contracted
-// FMAs).
-// NC: the number of coefficients, or 0 to take n.
-template <int NC>
-__device__ __forceinline__ void pair_coefs(const float* cf, int n, float mid,
-                                           float d2, float& s1, float& s2) {
-  if (NC > 0) n = NC;
-  const float dist = sqrtf(d2);
-  const bool in_lo = dist < mid;
-  const float* ab = cf + (in_lo ? 0 : 2);
-  const float t = (2.f * dist - ab[0]) / ab[1];
-  const float* c1 = cf + 4 + (in_lo ? 0 : 2 * n);
-  const float* c2 = c1 + n;
-  const float t2 = 2.f * t;
-  float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
-#pragma unroll 8
-  for (int k = n - 1; k > 0; --k) {
-    const float na = __fsub_rn(__fadd_rn(c1[k], __fmul_rn(t2, a1)), a2);
-    const float nb = __fsub_rn(__fadd_rn(c2[k], __fmul_rn(t2, b1)), b2);
-    a2 = a1;
-    a1 = na;
-    b2 = b1;
-    b1 = nb;
-  }
-  const float uf1 = __fsub_rn(__fadd_rn(c1[0], __fmul_rn(t, a1)), a2);
-  const float uf2 = __fsub_rn(__fadd_rn(c2[0], __fmul_rn(t, b1)), b2);
-  s1 = uf1;
-  s2 = (uf2 - uf1) / d2;
-}
-
 // Own rows staged per pass of tiles: the P = THREADS / G tiles that run at
 // once, or all T.
 __host__ __device__ __forceinline__ int pass_rows(int G, int T, int R) {
   return (THREADS / G < T ? THREADS / G : T) * R;
 }
 
-// A tile group's scratch.  The matvec: its window's 3 + NF rows of G LPT
-// lanes, which the forward sums of a load group (RG NF G <= NF G LPT / 2
-// floats) and then the transposed partials (NF rows) reuse.  The build
-// (nf = 0, a_bytes the block dtype's size, RG = 8 / a_bytes rows at a
-// time): its window's 4 rows (x, y, z, mask), then a queue of RG G LPT
-// valid pairs (d^2 and destination) and the RG rows' two A planes staged
-// in the block dtype.  One row of padding when several groups share a
-// warp.
-__host__ __device__ __forceinline__ int group_floats(int nf, int G,
-                                                     int a_bytes) {
-  const int GL = G * LPT, pad = G < 32 ? G : 0;
-  if (nf > 0) return (3 + nf) * GL + pad;
-  const int rg = 8 / a_bytes;
-  return 2 * rg * GL + rg * GL * a_bytes / 2 + pad;
+// A tile group's scratch: its window's 3 + NF rows of G LPT lanes, which
+// the forward sums of a load group (RG NF G <= 4 NF G floats) and then
+// the transposed partials (NF rows) reuse; one row of padding when
+// several groups share a warp.
+__host__ __device__ __forceinline__ int group_floats(int nf, int G) {
+  return (3 + nf) * G * LPT + (G < 32 ? G : 0);
 }
 
-// Shared memory floats: a pass's own (x, y, z, mask) and NRHS (f, 0) rows
-// as float4, the rank accumulator, the P tile groups' scratch, the
-// per-tile j0 and zsh, and the build's Chebyshev operand.
-size_t smem_floats(int nrhs, int S, int W, int T, int G, int R, int a_bytes,
-                   int n_coef) {
+// Shared memory floats: a pass's own (x, y, z, 0) and NRHS (f, 0) rows as
+// float4, the rank accumulator, the P tile groups' scratch, and the
+// per-tile j0 and zsh.
+size_t smem_floats(int nrhs, int S, int W, int T, int G, int R) {
   const int nf = 3 * nrhs;
   return 4 * (size_t)(1 + nrhs) * pass_rows(G, T, R) +
-         (size_t)nf * (S + W) +
-         (size_t)(THREADS / G) * group_floats(nf, G, a_bytes) +
-         2 * (size_t)T + (nrhs == 0 ? 4 + 4 * (size_t)n_coef : 0);
+         (size_t)nf * (S + W) + (size_t)(THREADS / G) * group_floats(nf, G) +
+         2 * (size_t)T;
 }
 
-// One block's work, (column c, stored offset h): the matvec on NRHS > 0
-// right-hand sides, or with NRHS = 0 the build of A.
-template <int NRHS, typename AT, bool TR, int NC>
+template <int NRHS, typename AT, bool TR>
 __device__ __forceinline__ void column_block(const Band& b, float* smem,
                                              const int c, const int h) {
-  constexpr bool BUILD = NRHS == 0;
   constexpr int NF = 3 * NRHS;
-  constexpr int NX = NF > 0 ? NF : 1;          // register array extent
   constexpr int RG = sizeof(AT) == 2 ? 4 : 2;  // rows per load group
-  constexpr int V = LPT * sizeof(AT) / 16;     // 16-byte words per segment
   const int S = b.S, W = b.W, R = b.R, T = b.T, G = b.G;
   const int SW = S + W, P = THREADS / G, GL = G * LPT;
   const int PR = pass_rows(G, T, R);
@@ -248,28 +193,23 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
   const int Tv = (b.n_valid[c] + R - 1) / R;  // tiles with occupied rows
   const float wx = (cx + ox >= b.ncx) ? 1.f : ((cx + ox < 0) ? -1.f : 0.f);
   const float wy = (cy + oy >= b.ncy) ? 1.f : ((cy + oy < 0) ? -1.f : 0.f);
-  // explicit roundings (no fused multiply-add) in the geometry the build
-  // tests against the cutoff, so that the plain build reproduces it
   const float sy = wy * b.Ly;
   const float sx = __fadd_rn(wx * b.Lx, __fmul_rn(b.tilt, sy));
 
   float4* ownp = reinterpret_cast<float4*>(smem);          // PR
   float4* ownf = ownp + PR;                                 // NRHS x PR
   float* acc = reinterpret_cast<float*>(ownf + NRHS * PR);  // NF x SW
-  const int WS = group_floats(NF, G, sizeof(AT));
+  const int WS = group_floats(NF, G);
   float* scr = acc + NF * SW;                                // P x WS
   int* tj0 = reinterpret_cast<int*>(scr + P * WS);           // T
   float* tzs = reinterpret_cast<float*>(tj0 + T);            // T
-  float* cf = tzs + T;  // Chebyshev operand (build): 4 + 4 n_coef
-  const int nc = b.n_coef;
 
   // the own rows of the pass of tiles from t0
   auto stage_own = [&](int t0) {
     const int i0 = t0 * R, n = min(PR, Tv * R - i0);
     for (int s = tid; s < n; s += THREADS) {
       const long long o = (long long)c * S + i0 + s;
-      ownp[s] = make_float4(b.px[o], b.py[o], b.pz[o],
-                            BUILD ? b.mask[o] : 0.f);
+      ownp[s] = make_float4(b.px[o], b.py[o], b.pz[o], 0.f);
 #pragma unroll
       for (int r = 0; r < NRHS; ++r)
         ownf[r * PR + s] = make_float4(b.f[3 * r * CS + o],
@@ -289,33 +229,15 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
   for (int s = Tv * R + tid; s < S; s += THREADS)
 #pragma unroll
     for (int k = 0; k < NF; ++k) fwd[k * S + s] = 0.f;
-  AT* A = reinterpret_cast<AT*>(b.A);
-  const long long a_row = (long long)N_HALF * W;
-  if (BUILD) {
-    for (int s = tid; s < 4 + 4 * nc; s += THREADS) cf[s] = b.cheb[s];
-    // the empty tiles' A rows of this offset, both planes: zeros
-    const int i0 = Tv * R, rows = S - i0;
-    const int chunks = W * (int)sizeof(AT) / 16;
-    for (int e = tid; e < 2 * rows * chunks; e += THREADS) {
-      const int r = e / chunks, pl = r / rows, i = i0 + r % rows;
-      __stcs(reinterpret_cast<uint4*>(
-                 A + ((long long)(2 * c + pl) * S + i) * a_row +
-                 (long long)h * W) + e % chunks,
-             make_uint4(0u, 0u, 0u, 0u));
-    }
-  }
   __syncthreads();
 
   const int p = tid / G, g = tid % G, w0 = g * LPT;
   float* grp = scr + p * WS;  // this tile group's scratch
   const bool lanes = w0 < W;  // W = 192 leaves a quarter of the group idle
-  // the threads that meet at the tile group's warp-level operations: the
-  // group, or in the build the whole warp (its groups of tiles past the
-  // occupied ones run with no valid pair, so that every shuffle and
-  // __syncwarp takes the full warp)
   const unsigned gmask =
-      BUILD || G == 32 ? 0xffffffffu
-                       : ((1u << G) - 1u) << ((tid & 31) & ~(G - 1));
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << ((tid & 31) & ~(G - 1));
+  const AT* A = reinterpret_cast<const AT*>(b.A);
+  const long long a_row = (long long)N_HALF * W;
 
   for (int t0 = 0; t0 < Tv; t0 += P) {
     if (t0 > 0) {  // the last pass is done with its own rows
@@ -324,13 +246,12 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
       __syncthreads();
     }
     const int t = t0 + p;
-    const bool live = t < Tv;  // the same for the G threads of a tile
-    if (BUILD ? t0 + (tid & ~31) / G < Tv : live) {
-      const int j0 = tj0[min(t, T - 1)];
-      const float zs = tzs[min(t, T - 1)];
-      AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
-                 (long long)h * W + w0;
-      AT* a_bq = a_im + (long long)S * a_row;
+    if (t < Tv) {  // the same for the G threads of a tile
+      const int j0 = tj0[t];
+      const float zs = tzs[t];
+      const AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
+                       (long long)h * W + w0;
+      const AT* a_bq = a_im + (long long)S * a_row;
       auto load_rows = [&](Coef8<AT>* im, Coef8<AT>* bq, int i0) {
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr) {
@@ -344,13 +265,12 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
         }
       };
       Coef8<AT> im[RG], bq[RG];
-      if (!BUILD) load_rows(im, bq, 0);  // in flight while the window loads
+      load_rows(im, bq, 0);  // in flight while the window loads
       // the window's GL lanes into the scratch, lane wl of each row by
       // thread wl % G: rank q < nv is slot q, rank q >= nv is slot q - nv
       // one period up
 #pragma unroll
       for (int m = 0; m < LPT; ++m) {
-        if (!live) break;
         const int wl = g + G * m;
         const int q = min(j0 + wl, SW - 1);
         const bool wrap = q >= nv;
@@ -362,11 +282,10 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
 #pragma unroll
         for (int k = 0; k < NF; ++k)
           grp[(3 + k) * GL + wl] = __ldg(b.f + k * CS + o);
-        if (BUILD) grp[3 * GL + wl] = wl < nv ? __ldg(b.mask + o) : 0.f;
       }
       __syncwarp(gmask);
       // this thread's LPT lanes of each row, two 16-byte loads a row
-      float xw[LPT], yw[LPT], zw[LPT], fw[NX][LPT], tp[NX][LPT];
+      float xw[LPT], yw[LPT], zw[LPT], fw[NF][LPT], tp[NF][LPT];
       auto lanes8 = [&](float* dst, int row) {
         const float4* src =
             reinterpret_cast<const float4*>(grp + row * GL + w0);
@@ -383,110 +302,6 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
 #pragma unroll
         for (int l = 0; l < LPT; ++l) tp[k][l] = 0.f;
       }
-      if (BUILD) {
-        float mw[LPT];
-        lanes8(mw, 3);
-        unsigned mwb = 0;  // this thread's occupied lanes
-#pragma unroll
-        for (int l = 0; l < LPT; ++l)
-          mwb |= (live && lanes && mw[l] > 0.f) << l;
-        __syncwarp(gmask);  // the scratch holds the queue from here
-        // the queue: each valid pair's d^2 and its destination, the lane
-        // index in the staged planes of the RG rows
-        float2* queue = reinterpret_cast<float2*>(grp);
-        AT* stg = reinterpret_cast<AT*>(grp + 2 * RG * GL);
-        const int rb = j0 + w0;  // rank of this thread's lane 0
-        const unsigned lane = tid & 31;
-        const unsigned gbits =
-            G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
-        const unsigned before = gbits & ((1u << lane) - 1u);
-        for (int i0 = 0; i0 < R; i0 += RG) {
-          // every pair's geometry and validity; the valid pairs go to the
-          // queue, each thread's in lane order after those of the threads
-          // before it; this thread's staged lanes start at zero
-          int n = 0;  // entries the group has queued
-#pragma unroll
-          for (int rr = 0; rr < RG; ++rr) {
-#pragma unroll
-            for (int k = 0; k < 2; ++k)
-#pragma unroll
-              for (int v = 0; v < V; ++v)
-                reinterpret_cast<uint4*>(stg + (k * RG + rr) * GL + w0)[v] =
-                    make_uint4(0u, 0u, 0u, 0u);
-            const int i = t * R + i0 + rr;  // own slot
-            const float4 pi = ownp[p * R + i0 + rr];
-            // lanes that may pair with row i: occupied, and at offset 0
-            // not its own slot (rank i, or rank i + nv one period up)
-            unsigned ok = pi.w > 0.f ? mwb : 0u;
-            if (h == 0) {
-              const int d = i - rb, e = i + nv - rb;
-              if (d >= 0 && d < LPT && i < nv) ok &= ~(1u << d);
-              if (e >= 0 && e < LPT) ok &= ~(1u << e);
-            }
-            float d2[LPT];
-            unsigned bits = 0;
-#pragma unroll
-            for (int l = 0; l < LPT; ++l) {
-              const float dx = pi.x - xw[l], dy = pi.y - yw[l],
-                          dz = pi.z - zw[l];
-              d2[l] = __fadd_rn(
-                  __fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                  __fmul_rn(dz, dz));
-              bits |= (unsigned)(d2[l] < b.cut2 && d2[l] >= b.dr2) << l;
-            }
-            bits &= ok;
-            // the group's prefix and total of the counts (0..8), from
-            // their bits
-            const int cnt = __popc(bits);
-            int pos = n, tot = 0;
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const unsigned vk = __ballot_sync(gmask, (cnt >> k) & 1);
-              pos += __popc(vk & before) << k;
-              tot += __popc(vk & gbits) << k;
-            }
-            n += tot;
-#pragma unroll
-            for (int l = 0; l < LPT; ++l)
-              if ((bits >> l) & 1u)
-                queue[pos++] = make_float2(
-                    d2[l], __int_as_float(rr * GL + w0 + l));
-          }
-          __syncwarp(gmask);
-          // the pair functions over the queue, two entries per thread at a
-          // time, every thread of the group busy; the rounded coefficients
-          // go to their staged lanes
-          for (int e = g; e < n; e += 2 * G) {
-            const bool two = e + G < n;
-            const float2 qa = queue[e], qb = queue[two ? e + G : e];
-            float s1, s2, u1, u2;
-            pair_coefs<NC>(cf, nc, b.mid, qa.x, s1, s2);
-            pair_coefs<NC>(cf, nc, b.mid, qb.x, u1, u2);
-            const int da = __float_as_int(qa.y), db = __float_as_int(qb.y);
-            stg[da] = from_f32<AT>(s1);
-            stg[RG * GL + da] = from_f32<AT>(s2);
-            if (two) {
-              stg[db] = from_f32<AT>(u1);
-              stg[RG * GL + db] = from_f32<AT>(u2);
-            }
-          }
-          __syncwarp(gmask);
-          // this thread's staged lanes of the RG rows to A, both planes
-          if (live && lanes)
-#pragma unroll
-            for (int rr = 0; rr < RG; ++rr)
-#pragma unroll
-              for (int v = 0; v < V; ++v) {
-                const uint4* src = reinterpret_cast<const uint4*>(
-                    stg + rr * GL + w0);
-                __stcs(reinterpret_cast<uint4*>(a_im + (i0 + rr) * a_row) + v,
-                       src[v]);
-                __stcs(reinterpret_cast<uint4*>(a_bq + (i0 + rr) * a_row) + v,
-                       src[RG * GL * sizeof(AT) / 16 + v]);
-              }
-        }
-        continue;
-      }
       __syncwarp(gmask);  // the scratch holds the row sums from here
       float* redp = grp;
       for (int i0 = 0; i0 < R; i0 += RG) {
@@ -494,7 +309,7 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
         for (int rr = 0; rr < RG; ++rr) {
           const int i = p * R + i0 + rr;  // row t R + i0 + rr of the column
           const float4 pi = ownp[i];
-          float fi[NX], u[NX];
+          float fi[NF], u[NF];
 #pragma unroll
           for (int r = 0; r < NRHS; ++r) {
             const float4 q = ownf[r * PR + i];
@@ -564,7 +379,7 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
       __syncthreads();
       const int np = min(P, Tv - t0);
       for (int q = tid; q < SW; q += THREADS) {
-        float s[NX];
+        float s[NF];
 #pragma unroll
         for (int k = 0; k < NF; ++k) s[k] = acc[k * SW + q];
         for (int pp = 0; pp < np; ++pp) {
@@ -594,11 +409,9 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
   }
 }
 
-// The matvec on NRHS = 1 or 2 right-hand sides, or with NRHS = 0 the build
-// (with NC Chebyshev coefficients, or 0 for any number)
-template <int NRHS, typename AT, int NC>
-__global__ void __launch_bounds__(THREADS, NRHS <= 1 ? 2 : 1)
-    banded_kernel(Band b) {
+template <int NRHS, typename AT>
+__global__ void __launch_bounds__(THREADS, NRHS == 1 ? 2 : 1)
+    matvec_kernel(Band b) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   // the blocks with a transposed half first, the lighter h = 0 ones last,
@@ -606,17 +419,17 @@ __global__ void __launch_bounds__(THREADS, NRHS <= 1 ? 2 : 1)
   const int C = b.ncx * b.ncy;
   const int item = blockIdx.x + C * blockIdx.y;
   const int c = item % C, h = item < (N_HALF - 1) * C ? 1 + item / C : 0;
-  if (NRHS > 0 && h > 0)
-    column_block<NRHS, AT, (NRHS > 0), NC>(b, smem, c, h);
+  if (h > 0)
+    column_block<NRHS, AT, true>(b, smem, c, h);
   else
-    column_block<NRHS, AT, false, NC>(b, smem, c, h);
+    column_block<NRHS, AT, false>(b, smem, c, h);
 }
 
-template <int NRHS, typename AT, int NC = 0>
+template <int NRHS, typename AT>
 cudaError_t launch(const Band& b, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * smem_floats(NRHS, b.S, b.W, b.T, b.G,
-                                                  b.R, sizeof(AT), b.n_coef);
-  auto kernel = banded_kernel<NRHS, AT, NC>;
+  const size_t smem =
+      sizeof(float) * smem_floats(NRHS, b.S, b.W, b.T, b.G, b.R);
+  auto kernel = matvec_kernel<NRHS, AT>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(b.ncx * b.ncy, N_HALF);
@@ -626,14 +439,248 @@ cudaError_t launch(const Band& b, cudaStream_t stream) {
 
 template <typename AT>
 cudaError_t dispatch(int nrhs, const Band& b, cudaStream_t stream) {
-  // the build: the main path's degree-8 fits unrolled, any other degree
-  // through the general recurrence
-  if (nrhs == 0)
-    return b.n_coef == 9 ? launch<0, AT, 9>(b, stream)
-                         : launch<0, AT>(b, stream);
   if (nrhs == 1) return launch<1, AT>(b, stream);
   if (nrhs == 2) return launch<2, AT>(b, stream);
   return cudaErrorInvalidValue;
+}
+
+// The pair functions of chebyshev.eval_pair_functions at a valid d^2 as the
+// build stores them, (imrr, bco / d^2): the two Clenshaw recurrences on the
+// coefficient rows of the piece, rounded step by step as they are there (no
+// fused multiply-add), and the two true divisions, so that the float32
+// build is the plain build bit for bit.  On the H100 those roundings cost
+// about 0.01 ms of the build (pse_tpu_torch/ab.py --contract times them
+// against contracted FMAs; 0.044 ms when every pair evaluated them).
+// NC: the number of coefficients, or 0 to take n.
+template <int NC>
+__device__ __forceinline__ void pair_coefs(const float* cf, int n, float mid,
+                                           float d2, float& s1, float& s2) {
+  if (NC > 0) n = NC;
+  const float dist = sqrtf(d2);
+  const bool in_lo = dist < mid;
+  const float* ab = cf + (in_lo ? 0 : 2);
+  const float t = (2.f * dist - ab[0]) / ab[1];
+  const float* c1 = cf + 4 + (in_lo ? 0 : 2 * n);
+  const float* c2 = c1 + n;
+  const float t2 = 2.f * t;
+  float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
+#pragma unroll 8
+  for (int k = n - 1; k > 0; --k) {
+    const float na = __fsub_rn(__fadd_rn(c1[k], __fmul_rn(t2, a1)), a2);
+    const float nb = __fsub_rn(__fadd_rn(c2[k], __fmul_rn(t2, b1)), b2);
+    a2 = a1;
+    a1 = na;
+    b2 = b1;
+    b1 = nb;
+  }
+  const float uf1 = __fsub_rn(__fadd_rn(c1[0], __fmul_rn(t, a1)), a2);
+  const float uf2 = __fsub_rn(__fadd_rn(c2[0], __fmul_rn(t, b1)), b2);
+  s1 = uf1;
+  s2 = (uf2 - uf1) / d2;
+}
+
+// A build tile group's scratch: its window's 4 rows (x, y, z, mask) of G
+// LPT lanes, then a queue of RG G LPT valid pairs (d^2 and destination)
+// and the RG rows' two A planes staged in the block dtype (RG = 8 /
+// a_bytes rows at a time); one row of padding when several groups share a
+// warp.
+__host__ __device__ __forceinline__ int build_floats(int G, int a_bytes) {
+  const int GL = G * LPT, rg = 8 / a_bytes;
+  return 2 * rg * GL + rg * GL * a_bytes / 2 + (G < 32 ? G : 0);
+}
+
+// The build over a grid of tiles: tile group p of block x takes tile k = x P
+// + p of the (offset, column, tile) list, occupied or not (an empty tile's
+// rows are stored as zeros from its empty staging), so the blocks are of
+// one size and the last wave is short.
+template <typename AT, int NC>
+__global__ void __launch_bounds__(THREADS, 2) build_tiles(Band b) {
+  constexpr int RG = sizeof(AT) == 2 ? 4 : 2;  // rows per batch
+  constexpr int V = LPT * sizeof(AT) / 16;     // 16-byte words per segment
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int S = b.S, W = b.W, R = b.R, T = b.T, G = b.G;
+  const int SW = S + W, P = THREADS / G, GL = G * LPT;
+  const int C = b.ncx * b.ncy;
+  const int tid = threadIdx.x, p = tid / G, g = tid % G, w0 = g * LPT;
+  const int nc = b.n_coef;
+  const int CF = (4 + 4 * nc + 3) & ~3;
+  float* cf = smem;                                            // CF
+  float4* own = reinterpret_cast<float4*>(smem + CF) + p * R;  // R a group
+  const int WS = build_floats(G, sizeof(AT));
+  float* grp = smem + CF + 4 * P * R + p * WS;                 // WS a group
+  for (int s = tid; s < 4 + 4 * nc; s += THREADS) cf[s] = b.cheb[s];
+
+  // this group's tile: offset h, column c, tile t, the tiles of one (c, h)
+  // consecutive; live if it holds an occupied row
+  const int k = blockIdx.x * P + p;
+  const bool tile = k < N_HALF * C * T;
+  const int kk = tile ? k : 0;
+  const int h = kk / (C * T), c = (kk / T) % C, t = kk % T;
+  const int cx = c / b.ncy, cy = c % b.ncy;
+  const int ox = OX[h], oy = OY[h];
+  const int nbr =
+      ((cx + ox + b.ncx) % b.ncx) * b.ncy + (cy + oy + b.ncy) % b.ncy;
+  const int nv = b.n_valid[nbr];
+  const bool live = tile && t * R < b.n_valid[c];
+  const float wx = (cx + ox >= b.ncx) ? 1.f : ((cx + ox < 0) ? -1.f : 0.f);
+  const float wy = (cy + oy >= b.ncy) ? 1.f : ((cy + oy < 0) ? -1.f : 0.f);
+  const float sy = wy * b.Ly;
+  const float sx = __fadd_rn(wx * b.Lx, __fmul_rn(b.tilt, sy));
+  const long long wt = ((long long)h * C + c) * T + t;
+  const int j0 = b.j0[wt];
+  const float zs = b.zsh[wt];
+  // its own rows, and its window's GL lanes, lane wl of each row by thread
+  // wl % G: rank q < nv is slot q, rank q >= nv is slot q - nv one period up
+  if (live) {
+    for (int r = g; r < R; r += G) {
+      const long long o = (long long)c * S + t * R + r;
+      own[r] = make_float4(b.px[o], b.py[o], b.pz[o], b.mask[o]);
+    }
+#pragma unroll
+    for (int m = 0; m < LPT; ++m) {
+      const int wl = g + G * m;
+      const int q = min(j0 + wl, SW - 1);
+      const bool wrap = q >= nv;
+      const long long o = (long long)nbr * S + min(wrap ? q - nv : q, S - 1);
+      grp[wl] = __ldg(b.px + o) + sx;
+      grp[GL + wl] = __ldg(b.py + o) + sy;
+      grp[2 * GL + wl] = (__ldg(b.pz + o) + (wrap ? b.Lz : 0.f)) - zs;
+      grp[3 * GL + wl] = wl < nv ? __ldg(b.mask + o) : 0.f;
+    }
+  }
+  __syncthreads();
+  const bool lanes = w0 < W;
+  float xw[LPT], yw[LPT], zw[LPT], mw[LPT];
+  auto lanes8 = [&](float* dst, int row) {
+    const float4* src = reinterpret_cast<const float4*>(grp + row * GL + w0);
+    const float4 lo = src[0], hi = src[1];
+    dst[0] = lo.x, dst[1] = lo.y, dst[2] = lo.z, dst[3] = lo.w;
+    dst[4] = hi.x, dst[5] = hi.y, dst[6] = hi.z, dst[7] = hi.w;
+  };
+  lanes8(xw, 0);
+  lanes8(yw, 1);
+  lanes8(zw, 2);
+  lanes8(mw, 3);
+  unsigned mwb = 0;  // this thread's occupied lanes
+#pragma unroll
+  for (int l = 0; l < LPT; ++l) mwb |= (live && lanes && mw[l] > 0.f) << l;
+  // every shuffle, ballot and __syncwarp takes the whole warp: a group
+  // whose tile is empty or past the list runs along with no valid pair
+  const bool warp_live = __any_sync(0xffffffffu, live);
+  __syncwarp();  // the scratch holds the queue from here
+  AT* A = reinterpret_cast<AT*>(b.A);
+  const long long a_row = (long long)N_HALF * W;
+  AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
+             (long long)h * W + w0;
+  AT* a_bq = a_im + (long long)S * a_row;
+  // the queue: each valid pair's d^2 and its destination, the lane index in
+  // the staged planes of the RG rows
+  float2* queue = reinterpret_cast<float2*>(grp);
+  AT* stg = reinterpret_cast<AT*>(grp + 2 * RG * GL);
+  const int rb = j0 + w0;  // rank of this thread's lane 0
+  const unsigned lane = tid & 31;
+  const unsigned gbits =
+      G == 32 ? 0xffffffffu : ((1u << G) - 1u) << (lane & ~(G - 1));
+  const unsigned before = gbits & ((1u << lane) - 1u);
+  for (int i0 = 0; i0 < R; i0 += RG) {
+    // every pair's geometry and validity; the valid pairs go to the queue,
+    // each thread's in lane order after those of the threads before it;
+    // this thread's staged lanes start at zero
+    int n = 0;  // entries the group has queued
+#pragma unroll
+    for (int rr = 0; rr < RG; ++rr) {
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp)
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          reinterpret_cast<uint4*>(stg + (kp * RG + rr) * GL + w0)[v] =
+              make_uint4(0u, 0u, 0u, 0u);
+      if (!warp_live) continue;
+      const int i = t * R + i0 + rr;  // own slot
+      const float4 pi = own[i0 + rr];
+      // lanes that may pair with row i: occupied, and at offset 0 not its
+      // own slot (rank i, or rank i + nv one period up)
+      unsigned ok = pi.w > 0.f ? mwb : 0u;
+      if (h == 0) {
+        const int d = i - rb, e = i + nv - rb;
+        if (d >= 0 && d < LPT && i < nv) ok &= ~(1u << d);
+        if (e >= 0 && e < LPT) ok &= ~(1u << e);
+      }
+      float d2[LPT];
+      unsigned bits = 0;
+#pragma unroll
+      for (int l = 0; l < LPT; ++l) {
+        const float dx = pi.x - xw[l], dy = pi.y - yw[l], dz = pi.z - zw[l];
+        d2[l] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                          __fmul_rn(dz, dz));
+        bits |= (unsigned)(d2[l] < b.cut2 && d2[l] >= b.dr2) << l;
+      }
+      bits &= ok;
+      // the group's prefix and total of the counts (0..8), from their bits
+      const int cnt = __popc(bits);
+      int pos = n, tot = 0;
+#pragma unroll
+      for (int kb = 0; kb < 4; ++kb) {
+        const unsigned vk = __ballot_sync(0xffffffffu, (cnt >> kb) & 1);
+        pos += __popc(vk & before) << kb;
+        tot += __popc(vk & gbits) << kb;
+      }
+      n += tot;
+#pragma unroll
+      for (int l = 0; l < LPT; ++l)
+        if ((bits >> l) & 1u)
+          queue[pos++] =
+              make_float2(d2[l], __int_as_float(rr * GL + w0 + l));
+    }
+    __syncwarp();
+    // the pair functions over the queue, two entries per thread at a time,
+    // every thread of the group busy; the rounded coefficients go to their
+    // staged lanes
+    for (int e = g; e < n; e += 2 * G) {
+      const bool two = e + G < n;
+      const float2 qa = queue[e], qb = queue[two ? e + G : e];
+      float s1, s2, u1, u2;
+      pair_coefs<NC>(cf, nc, b.mid, qa.x, s1, s2);
+      pair_coefs<NC>(cf, nc, b.mid, qb.x, u1, u2);
+      const int da = __float_as_int(qa.y), db = __float_as_int(qb.y);
+      stg[da] = from_f32<AT>(s1);
+      stg[RG * GL + da] = from_f32<AT>(s2);
+      if (two) {
+        stg[db] = from_f32<AT>(u1);
+        stg[RG * GL + db] = from_f32<AT>(u2);
+      }
+    }
+    __syncwarp();
+    // this thread's staged lanes of the RG rows to A, both planes (zeros in
+    // an empty tile)
+    if (tile && lanes)
+#pragma unroll
+      for (int rr = 0; rr < RG; ++rr)
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const uint4* src =
+              reinterpret_cast<const uint4*>(stg + rr * GL + w0);
+          __stcs(reinterpret_cast<uint4*>(a_im + (i0 + rr) * a_row) + v,
+                 src[v]);
+          __stcs(reinterpret_cast<uint4*>(a_bq + (i0 + rr) * a_row) + v,
+                 src[RG * GL * sizeof(AT) / 16 + v]);
+        }
+  }
+}
+
+template <typename AT, int NC>
+cudaError_t launch_build(const Band& b, cudaStream_t stream) {
+  const int P = THREADS / b.G;
+  const size_t smem =
+      sizeof(float) * (((4 + 4 * b.n_coef + 3) & ~3) + 4 * (size_t)P * b.R +
+                       (size_t)P * build_floats(b.G, sizeof(AT)));
+  auto kernel = build_tiles<AT, NC>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int tiles = N_HALF * b.ncx * b.ncy * b.T;
+  kernel<<<(tiles + P - 1) / P, THREADS, smem, stream>>>(b);
+  return cudaGetLastError();
 }
 
 // R a multiple of 8 (so of each load group) up to 32 dividing S; W a
@@ -658,8 +705,7 @@ extern "C" int pse_banded_matvec(int nrhs, const float* px, const float* py,
                                  int R, int W, float Lx, float Ly, float Lz,
                                  float tilt, int a_bf16, const void* A,
                                  float* uo, cudaStream_t stream) {
-  if (!shapes_ok(S, R, W, A) || nrhs < 1 || nrhs > 2)
-    return (int)cudaErrorInvalidValue;
+  if (!shapes_ok(S, R, W, A)) return (int)cudaErrorInvalidValue;
   const Band b{px,  py,  pz,  nullptr, f,      j0,  zsh,
                n_valid, nullptr, 0, 0.f, 0.f, 0.f, ncx,
                ncy, S,   R,   W,       S / R,  group_threads(W),
@@ -681,7 +727,12 @@ extern "C" int pse_banded_build(const float* px, const float* py,
   const Band b{px,   py,   pz,  mask, nullptr, j0,  zsh, n_valid, cheb,
                n_coef, mid, cut2, dr2, ncx,  ncy,  S,   R,   W,
                S / R, group_threads(W), Lx, Ly, Lz,   tilt, A,   nullptr};
-  const cudaError_t e = a_bf16 ? dispatch<__nv_bfloat16>(0, b, stream)
-                               : dispatch<float>(0, b, stream);
+  // the main path's degree-8 fits unrolled, any other degree through the
+  // general recurrence
+  const cudaError_t e =
+      a_bf16 ? (n_coef == 9 ? launch_build<__nv_bfloat16, 9>(b, stream)
+                            : launch_build<__nv_bfloat16, 0>(b, stream))
+             : (n_coef == 9 ? launch_build<float, 9>(b, stream)
+                            : launch_build<float, 0>(b, stream));
   return (int)e;
 }
