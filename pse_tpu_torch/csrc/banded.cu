@@ -14,7 +14,7 @@
 //     kernel on the A it wrote (banded_nearfield._launch_banded): versions
 //     that built each tile inside the matvec's block kept its registers and
 //     shared memory and timed slower on the H100 at one and two right-hand
-//     sides (PERF.md, PR 7).  So build_mv's u is the matvec's u on its A,
+//     sides (PERF.md).  So build_mv's u is the matvec's u on its A,
 //     bit for bit, and Lanczos sees one operator.
 // The float32 build equals its plain version `build_banded_blocks_reference`
 // bit for bit; a bfloat16 A is that float32 A rounded once.
@@ -58,7 +58,7 @@
 //     rank, the wrap's z + Lz applied) from global memory in coalesced rows
 //     into its own shared-memory scratch, from which a thread reads its
 //     lanes in 16-byte loads into registers;
-//   * the matvec (PR 6's): one block per (column c, offset h), the own rows
+//   * the matvec: one block per (column c, offset h), the own rows
 //     of each pass of THREADS / G tiles staged in shared memory, the lanes'
 //     f in registers so the transposed sums stay in registers over the
 //     tile; each thread writes its RG rows' forward partial sums to its
@@ -75,16 +75,16 @@
 //     they fill the grid's last wave;
 //   * the build runs on a grid of tiles: each tile group takes one (offset,
 //     column, tile), so blocks are of one size (per (column, offset) they
-//     left a long last wave: 0.19 against 0.145 ms, PERF.md, PR 7), and its
-//     shared memory does not grow with S.  It computes the pair functions
-//     only where a pair is valid (a branch per pair would run them whenever
-//     any lane of the warp needs them, nearly always): for RG rows it tests
-//     every pair, queues the valid ones (d^2 and destination) in its
-//     group's scratch, each thread's in lane order at a prefix of the
-//     group's counts taken from ballots of their bits, evaluates the queue
-//     two entries per thread with every thread busy (the main path's nine
-//     coefficients unrolled), writes the rounded coefficients into the RG
-//     rows staged in shared memory (zeros elsewhere), and stores each
+//     left a long last wave: 0.19 against 0.145 ms on the H100, PERF.md),
+//     and its shared memory does not grow with S.  It computes the pair
+//     functions only where a pair is valid (a branch per pair would run
+//     them whenever any lane of the warp needs them, nearly always): for RG
+//     rows it tests every pair, queues the valid ones (d^2 and destination)
+//     in its group's scratch, each thread's in lane order at a prefix of
+//     the group's counts taken from ballots of their bits, evaluates the
+//     queue two entries per thread with every thread busy (the main path's
+//     nine coefficients unrolled), writes the rounded coefficients into the
+//     RG rows staged in shared memory (zeros elsewhere), and stores each
 //     thread's lanes with 16-byte stores.
 // Their H100 times and resources are in PERF.md.
 #include "common.cuh"
