@@ -27,10 +27,12 @@ Phases (each failure makes the script exit non-zero without the result line):
   [main-blocks]   build_banded_blocks once per tilt (0, 0.3) at the main
             path's state, the standalone build's entry point;
   [profile] torch.profiler over 3 more steps of each main path: device time
-            by kernel and the device's idle share;
+            by kernel, kernel launches per step and the device's idle share;
   [kernels] each kernel against its plain version at the main path's shapes
             (and the spread and the contract at the oracle's), at tilt 0 and
-            0.3: fill bitwise (value rows too); build_mv and matvec <= 1e-5
+            0.3: the fill bitwise on every output (slots, value rows, ranks,
+            overflow, starts, counts) for both binnings, and for both in an
+            overfull case; build_mv and matvec <= 1e-5
             (float32 A) and <= 2e-3 (bfloat16 A) against the unrounded
             float32 matvec_banded_reference, two right-hand sides <= 1e-4
             against two one-RHS launches; build_banded_blocks bitwise
@@ -46,12 +48,14 @@ Phases (each failure makes the script exit non-zero without the result line):
             operations at the peak rate of their type), and torch.bmm as the
             library yardstick of the spread (wxy with a pre-built X) and of
             the contract (the pre-gathered windows with wxy), printed as one
-            JSON line; the banded kernels also as their kernel launches
-            alone (CUDA-graph replay, without the wrapper's torch work): the
-            matvec, build_mv at two right-hand sides (one beside it: the
-            build and the matvec) and the build alone; the matvec's bound
-            counts the A rows of the non-empty tiles, the ones the kernel
-            reads, and the bound of all of A is kept beside it;
+            JSON line; the fill and the banded kernels also as their kernel
+            launches alone (CUDA-graph replay, without the wrapper's torch
+            work): the fill, the matvec, build_mv at two right-hand sides
+            (one beside it: the build and the matvec) and the build alone;
+            bin_columns and bin_particles with values (CUDA events); the
+            matvec's bound counts the A rows of the non-empty tiles, the
+            ones the kernel reads, and the bound of all of A is kept beside
+            it;
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -451,9 +455,12 @@ def phase_profile(sim, ms_step, label, steps=3):
         return
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    copies = sum(r[1] for r in rows if r[2].startswith(("Memcpy", "Memset")))
     print(f"  device kernels {busy:.3f} ms/step of {ms_step:.3f} ms/step "
           f"unprofiled wall: busy {100 * busy / ms_step:.1f}%, idle "
-          f"{100 * (1 - busy / ms_step):.1f}%")
+          f"{100 * (1 - busy / ms_step):.1f}%; "
+          f"{sum(r[1] for r in rows) - copies:.1f} kernel launches per step "
+          f"(and {copies:.1f} copies and memsets)")
     for ms, count, key in rows[:16]:
         print(f"  {ms:8.4f} ms/step  x{count:<6.1f} {key[:88]}")
 
@@ -547,11 +554,45 @@ def _check_contract(ph, results, config, pos, tilt, where):
             results["contract_col"]["err"].append(d)
 
 
+def _mismatches(a, b):
+    """Elements of a that differ from b (all of them, plus one, when the
+    shapes or types differ)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return a.numel() + 1
+    return int((a != b).sum())
+
+
+def _check_fill(ph, results, config, pos, box, vals, label, overfull):
+    """The fill kernel against its plain version on the same sort, every
+    output bitwise (slots, value rows, ranks, overflow, starts, counts),
+    for both binnings."""
+    from pse_tpu_torch import cellbins as cb
+
+    for name, spec, columns in (("near", config.band_spec.bins, True),
+                                ("far", config.colff_spec.bins, False)):
+        ops = cb.fill_operands(pos, box, spec, columns)
+        C, cap = spec.n_cells_total, spec.cap
+        got = cb.fill_cells(*ops, C, cap, vals)
+        want = cb.fill_cells_reference(*ops, C, cap, vals)
+        bad = {k: _mismatches(a, b)
+               for k, a, b in zip(cb.Fill._fields, got, want)}
+        ph.check(f"fill {name} {label} (mismatched elements over all "
+                 f"outputs; overflow {bool(got.overflow)}, largest count "
+                 f"{int(got.counts.max())} of cap {cap})", sum(bad.values()),
+                 0)
+        if bool(got.overflow) != overfull:
+            ph.failed.append(f"fill {name} {label}: overflow "
+                             f"{bool(got.overflow)}, expected {overfull}")
+        if sum(bad.values()):
+            print(f"  mismatches by output: {bad}")
+        results["fill_cells"]["err"].append(
+            0.0 if sum(bad.values()) == 0 else math.inf)
+
+
 def phase_kernels(ph, sim, results):
     """Each kernel against its plain version at the main path's shapes."""
     import torch
 
-    from pse_tpu_torch import cellbins as cb
     from pse_tpu_torch import integrator, make_params
     from pse_tpu_torch.box import make_box
     from pse_tpu_torch.ops import banded_nearfield as bdn
@@ -560,21 +601,14 @@ def phase_kernels(ph, sim, results):
     p = config.params
     pos = sim.state.pos
     print("[kernels] against the plain versions at the main path's shapes")
-    vals = sim.force_fn(pos, 0).t().contiguous()
+    vals = sim.force_fn(pos, 0)
+    lump = pos.clone()
+    lump[:2000, :2] = 0.5               # one overfull column and cell
+    for tilt, where, at in ((0.0, "main", pos), (0.3, "main", pos),
+                            (0.3, "overfull", lump)):
+        _check_fill(ph, results, config, at, make_box(p.L, tilt), vals,
+                    f"tilt={tilt} {where}", where == "overfull")
     for tilt in (0.0, 0.3):
-        box = make_box(p.L, tilt)
-        for name, spec, columns in (
-                ("near", config.band_spec.bins, True),
-                ("far", config.colff_spec.bins, False)):
-            ops = cb.fill_operands(pos, box, spec, columns)
-            v = vals[:, ops[1].long()]               # the sorted value rows
-            got = cb.fill_cells(*ops, spec.cap, v)
-            want = cb.fill_cells_reference(*ops, spec.cap, v)
-            bad = sum(int((a != b).sum()) for a, b in zip(got, want))
-            ph.check(f"fill {name} tilt={tilt} (mismatched slots, value "
-                     "rows included)", bad, 0)
-            results["fill_cells"]["err"].append(0.0 if bad == 0 else math.inf)
-
         bins, box, j0, nv, zsh, f, f2 = _band_operands(config, pos, tilt)
         for dtype, bound in (("float32", 1e-5), ("bfloat16", 2e-3)):
             bs = config.band_spec._replace(block_dtype=dtype)
@@ -677,13 +711,26 @@ def phase_timing(sim, results):
             bound_by="bytes" if t_bytes >= t_ops else "operations")
 
     ops = cb.fill_operands(pos, box, bs.bins, True)
-    vals = sim.force_fn(pos, 0).t()[:, ops[1].long()].contiguous()
-    # read: sorted xyz + pid + 3 value rows (28 B/particle), starts + counts;
-    # write: 5 (C, S) slot arrays + 3 value rows of 4 B
-    results["fill_cells"].update(
-        ms=cuda_ms(lambda: cb.fill_cells(*ops, S, vals), 50),
-        plain_ms=cuda_ms(lambda: cb.fill_cells_reference(*ops, S, vals), 20))
-    bound("fill_cells", (28 * N + 8 * C) + 32 * C * S, 0)
+    vals = sim.force_fn(pos, 0)
+    fl = results["fill_cells"]
+    fl.update(
+        ms=cuda_ms(lambda: cb.fill_cells(*ops, C, S, vals), 50),
+        plain_ms=cuda_ms(lambda: cb.fill_cells_reference(*ops, C, S, vals),
+                         20),
+        kernel_ms=graph_ms(lambda: cb.fill_cells(*ops, C, S, vals), 20),
+        bin_columns_ms=cuda_ms(lambda: cb.bin_columns(pos, box, bs.bins,
+                                                      values=vals), 20),
+        bin_particles_ms=cuda_ms(lambda: cb.bin_particles(
+            pos, box, cs.bins, values=vals), 20))
+    # read: the sorted cid (4 B) and order (8 B), 12 B of coordinates and
+    # 12 of values per particle; write: 8 slot arrays of 4 B, the rank of
+    # every particle, starts, counts and the flag
+    bound("fill_cells", 36 * N + 32 * C * S + 4 * N + 8 * C + 1, 0)
+    print(f"  fill (near field, with values): wrapper {fl['ms']:.4f} ms (CUDA "
+          f"events), kernel alone {fl['kernel_ms']:.4f} ms (CUDA-graph "
+          f"replay), bound {fl['bound_ms']:.4f} ms, plain {fl['plain_ms']:.4f}"
+          f" ms; bin_columns {fl['bin_columns_ms']:.4f} ms, bin_particles "
+          f"{fl['bin_particles_ms']:.4f} ms with values (CUDA events)")
 
     bins, box, j0, nv, zsh, f, f2 = _band_operands(config, pos, tilt)
     f12 = torch.cat([f, f2])
@@ -889,7 +936,8 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             **{k: r[k] for k in ("kernel_ms", "kernel_ms_1rhs",
-                                 "bound_full_A_ms") if k in r},
+                                 "bound_full_A_ms", "bin_columns_ms",
+                                 "bin_particles_ms") if k in r},
         })
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "

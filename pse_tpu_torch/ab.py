@@ -42,7 +42,22 @@ build and the contracted one are held against the plain build (max |diff|
 / max |plain|) at the main path's shapes and at the small configurations
 of tests/test_torch_cuda.py.
 
-``--only far|matvec|build`` (repeatable) runs only those parts.
+Binning: ``bin_columns`` and ``bin_particles`` (the near field's and the
+far field's configuration), each without and with values (bench.py's
+fixed random forces).  At tilts 0 and 0.3 the two checkouts' CellBins
+fields and binned values are compared (bitwise equality, max |diff|); at
+tilt 0.3 each call is timed by CUDA events, its device kernels counted and
+summed per call by torch.profiler, and, last, timed by CUDA-graph replay
+where the whole binning, sort included, captures (else the error is kept);
+the fill wrapper alone (with values) is timed by CUDA-graph replay: the
+binning's whole tail after the sort, or in checkouts before it the slot
+fill of the sorted rows.
+
+Step: each checkout's ``Simulation`` on the two main paths, wall ms per
+step (20 steps after 5 of warm-up) and its device kernels per step (count
+and summed time, torch.profiler over 3 more), twice per side.
+
+``--only far|matvec|build|bin|step`` (repeatable) runs only those parts.
 
 The sides run in alternating rounds in the order other, this, this, other
 (then contract, contract), each call timed by CUDA events around a loop of
@@ -385,6 +400,177 @@ def ab_build_mv(sides, order, pos, L, contract=None):
     return out
 
 
+def device_profile(fn, reps=5):
+    """Device kernels per call of fn(), by torch.profiler: the count of
+    kernel launches (and of copies and memsets), their summed time, and the
+    launches per call by kernel name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    by_name, ms = {}, 0.0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            name = ev.key[:80]
+            by_name[name] = by_name.get(name, 0.0) + ev.count / reps
+            ms += getattr(ev, "self_device_time_total",
+                          getattr(ev, "self_cuda_time_total", 0)) / reps / 1e3
+    copies = sum(c for k, c in by_name.items()
+                 if k.startswith(("Memcpy", "Memset")))
+    return {"launches": sum(by_name.values()) - copies, "copies": copies,
+            "device_ms": ms, "by_name": by_name}
+
+
+def fill_launch(cb, pos, box, spec, columns, F):
+    """A checkout's fill wrapper on its own operands with the values F: the
+    whole tail after the sort (``fill_cells(sorted_cid, order, coords, C,
+    cap, values)``), or, in checkouts before it, the slot fill alone on
+    the sorted rows (``fill_cells(pos_t, order, starts, counts, cap,
+    values_t)``)."""
+    ops = cb.fill_operands(pos, box, spec, columns)
+    if hasattr(cb, "Fill"):
+        return lambda: cb.fill_cells(*ops, spec.n_cells_total, spec.cap, F)
+    vals_t = F.t()[:, ops[1].long()].contiguous()
+    return lambda: cb.fill_cells(*ops, spec.cap, vals_t)
+
+
+def ab_bin(sides, order, pos, L):
+    """The binning A/B: both binnings with and without values, the sides'
+    outputs against each other at tilts 0 and 0.3; timings, launch counts
+    and device time at tilt 0.3."""
+    import torch
+
+    from chip_smoke import cuda_ms, graph_ms
+    from pse_tpu_torch import integrator, make_params
+    from pse_tpu_torch.box import make_box
+
+    p = make_params(xi=XI, error=ERROR, L=L)
+    cfg = integrator.make_config(p, N, engine="banded", device="cuda")
+    specs = {"bin_columns": cfg.band_spec.bins,
+             "bin_particles": cfg.colff_spec.bins}
+    F = torch.as_tensor(np.random.default_rng(1).normal(size=(N, 3))
+                        .astype(np.float32), device="cuda")
+    calls = [(name, v) for name in specs for v in (False, True)]
+
+    def call(m, name, with_values, box):
+        fn, spec = getattr(m, name), specs[name]
+        if with_values:
+            return lambda: fn(pos, box, spec, values=F)
+        return lambda: fn(pos, box, spec)
+
+    def fields(out, with_values):
+        bins, vals = out if with_values else (out, None)
+        got = dict(bins._asdict())
+        if with_values:
+            got["values"] = vals
+        return got
+
+    between = {}
+    for tilt in (0.0, TILT):
+        box = make_box(p.L, tilt)
+        for name, v in calls:
+            key = f"tilt={tilt} {name}{' values' if v else ''}"
+            got = {k: fields(call(m, name, v, box)(), v)
+                   for k, m in sides.items()}
+            if "other" not in got:
+                continue
+            between[key] = {}
+            for f, a in got["this"].items():
+                b = got["other"][f]
+                between[key][f] = {
+                    "bitwise": a.dtype == b.dtype and bool(torch.equal(a, b)),
+                    "max_abs_diff": float((a.double() - b.double())
+                                          .abs().max())}
+    box = make_box(p.L, TILT)
+    labels = [f"{name}{'+values' if v else ''}" for name, v in calls]
+    times = {k: {n: [] for n in labels} for k in sides}
+    for _ in range(ROUNDS):
+        for k in order:
+            for n, (name, v) in zip(labels, calls):
+                times[k][n].append(cuda_ms(call(sides[k], name, v, box),
+                                           REPS))
+    device = {k: {n: device_profile(call(m, name, v, box))
+                  for n, (name, v) in zip(labels, calls)}
+              for k, m in sides.items()}
+    fill = {k: {} for k in sides}
+    for _ in range(ROUNDS):
+        for k in order:
+            for name, spec in specs.items():
+                launch = fill_launch(sides[k], pos, box, spec,
+                                     name == "bin_columns", F)
+                fill[k].setdefault(f"{name}_graph", []).append(
+                    graph_ms(launch, REPS))
+                fill[k].setdefault(f"{name}_events", []).append(
+                    cuda_ms(launch, REPS))
+    graph = {k: {} for k in sides}
+    for k in sides:                     # this checkout's first
+        for n, (name, v) in zip(labels, calls):
+            try:
+                graph[k][n] = graph_ms(call(sides[k], name, v, box), REPS)
+            except RuntimeError as e:       # the binning does not capture
+                graph[k][n] = f"no capture: {str(e)[:120]}"
+    return {
+        "shapes": {k: {"C": s.n_cells_total, "cap": s.cap}
+                   for k, s in specs.items()},
+        "between": between,
+        "all_bitwise": all(f["bitwise"] for case in between.values()
+                           for f in case.values()),
+        "ms": times,
+        "median_ms": {k: {n: float(np.median(t)) for n, t in per.items()}
+                      for k, per in times.items()},
+        "device": device, "graph_ms": graph,
+        "fill_ms": {k: {n: float(np.median(t)) for n, t in per.items()}
+                    for k, per in fill.items()}}
+
+
+def ab_step(pkgs, order, pos, L):
+    """The step A/B: each side's Simulation on the main paths (brownian and
+    with bench.py's fixed random forces), wall ms per step over 20 steps
+    after 5 of warm-up, then its device kernels per step by torch.profiler
+    over 3 more."""
+    import time
+
+    import torch
+
+    from chip_smoke import DT, SEED
+
+    F = torch.as_tensor(np.random.default_rng(1).normal(size=(N, 3))
+                        .astype(np.float32), device="cuda")
+    out = {k: {} for k in pkgs}
+    for k in order:
+        pse = pkgs[k]
+        for path in ("brownian", "forces"):
+            force_fn = (lambda p, t: F) if path == "forces" else None
+            sim = pse.Simulation(positions=pos, L=L, dt=DT, sync_every=10,
+                                 force_fn=force_fn, device="cuda")
+            sim.set_integrator(pse.PSEv1(T=1.0, seed=SEED, xi=XI,
+                                         error=ERROR),
+                               engine="banded", verbose=False)
+            sim.run(5)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run(20)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / 20
+            prof = device_profile(lambda: sim.run(1), reps=3)
+            run = out[k].setdefault(path, {"wall_ms": [], "device_ms": [],
+                                           "launches": [], "copies": []})
+            run["wall_ms"].append(wall)
+            for key in ("device_ms", "launches", "copies"):
+                run[key].append(prof[key])
+            run["by_name"] = prof["by_name"]
+            del sim
+            torch.cuda.empty_cache()
+    return out
+
+
 def ab_far_field(libs, order, pos, L):
     """The far-field A/B: timings, checks and yardsticks."""
     import torch
@@ -456,10 +642,11 @@ def main() -> int:
                     help="root of another checkout whose kernels to time")
     ap.add_argument("--contract", action="store_true",
                     help="also time build_mv with contracted arithmetic")
-    ap.add_argument("--only", choices=("far", "matvec", "build"),
+    ap.add_argument("--only", choices=("far", "matvec", "build", "bin",
+                                       "step"),
                     action="append", help="run only these parts (repeatable)")
     a = ap.parse_args()
-    parts = set(a.only or ("far", "matvec", "build"))
+    parts = set(a.only or ("far", "matvec", "build", "bin", "step"))
     sys.path[0] = str(ROOT)          # not this script's own directory
     import torch
 
@@ -468,23 +655,30 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     from chip_smoke import make_positions
-    from pse_tpu_torch import kernels
+    from pse_tpu_torch import cellbins, kernels
     from pse_tpu_torch.ops import banded_nearfield as bdn
 
-    pos, L = make_positions(N, PHI, seed=0)
-    pos = torch.as_tensor(pos, device="cuda")
+    pos_np, L = make_positions(N, PHI, seed=0)
+    pos = torch.as_tensor(pos_np, device="cuda")
     libs = {"this": kernels.library()}
     for line in kernels.BUILD_INFO.get("log", "").splitlines():
         if "Function properties" in line or "registers" in line \
                 or "spill" in line:
             print("ptxas " + line.strip(), file=sys.stderr)
+    import pse_tpu_torch
+
     sides = {"this": bdn}
+    bin_sides = {"this": cellbins}
+    pkgs = {"this": pse_tpu_torch}
     order = ["this", "this"]
     if a.other:
         other = load_other(Path(a.other).resolve())
         libs["other"] = other.kernels.library()
         sides["other"] = importlib.import_module(
             "pse_tpu_torch_other.ops.banded_nearfield")
+        bin_sides["other"] = importlib.import_module(
+            "pse_tpu_torch_other.cellbins")
+        pkgs["other"] = other
         order = ["other", "this", "this", "other"]
     result = {"other": a.other, "order": order, "rounds": ROUNDS,
               "reps": REPS}
@@ -492,6 +686,10 @@ def main() -> int:
         result["far"] = ab_far_field(libs, order, pos, L)
     if "matvec" in parts:
         result["matvec"] = ab_matvec(sides, order, pos, L)
+    if "bin" in parts:
+        result["bin"] = ab_bin(bin_sides, order, pos, L)
+    if "step" in parts:
+        result["step"] = ab_step(pkgs, order, pos_np, L)
     if "build" in parts:
         tmp = tempfile.mkdtemp(prefix="ab_contract_")
         try:

@@ -1,4 +1,4 @@
-"""Padded cell-major particle storage, and the slot-fill kernel's wrapper.
+"""Padded cell-major particle storage, and the fill kernel's wrapper.
 
 PyTorch counterpart of ``pse_tpu/cellbins.py``.  Particles are binned into a
 fractional-space cell grid, each cell padded to a fixed capacity, so that the
@@ -8,13 +8,15 @@ banded near field's layout); ``bin_particles`` bins into the far-field
 columns.
 
 The JAX package sorts with a multi-key ``lax.sort``; here the same
-lexicographic order comes from chained stable ``torch.sort`` calls.  The
-placement of the sorted rows into slots is the fill kernel
-(``csrc/fill.cu``), on CUDA tensors, or its plain version on CPU tensors.
+lexicographic order comes from chained stable ``torch.sort`` calls.  All
+that follows the sort (slots, within-cell ranks, cell starts and counts,
+the overflow flag, the binned values) is one launch of the fill kernel
+(``csrc/fill.cu``) on CUDA tensors, or its plain version on CPU tensors.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
@@ -51,132 +53,150 @@ class CellBins(NamedTuple):
     overflow: torch.Tensor  # () bool
 
 
-def fill_cells_reference(pos_t, order, starts, counts, cap, values_t=None):
-    """Plain version of the fill kernel: slot s of cell c takes sorted row
-    starts[c] + s when s < counts[c]; pads get mask 0, pid N, zeros.
+class Fill(NamedTuple):
+    """Everything the fill computes from one binning's sort."""
 
-    pos_t (3, N) f32 and order (N,) i32 are cid-sorted; starts/counts (C,).
-    Returns (px, py, pz, mask, pid[, values (3, C, cap)])."""
+    px: torch.Tensor        # (C, cap) f32
+    py: torch.Tensor
+    pz: torch.Tensor
+    mask: torch.Tensor      # (C, cap) f32
+    pid: torch.Tensor       # (C, cap) i32
+    rank_of: torch.Tensor   # (N,) i32, ranks >= cap included
+    overflow: torch.Tensor  # () bool: some cell holds more than cap
+    starts: torch.Tensor    # (C,) i32: searchsorted(sorted_cid, c, "left")
+    counts: torch.Tensor    # (C,) i32
+    values: torch.Tensor | None   # (3, C, cap) when values were given
+
+
+def fill_cells_reference(sorted_cid, order, coords, n_cells, cap,
+                         values=None) -> Fill:
+    """Plain version of the fill kernel.  ``sorted_cid`` (N,) and ``order``
+    (N,) are the sort's keys and permutation, ``coords`` three unsorted (N,)
+    coordinate arrays, ``values`` unsorted (N, 3) or None.  Slot s of cell c
+    takes sorted row starts[c] + s when s < counts[c]; pads get mask 0,
+    pid N, zeros.  The rank of sorted row i is i - starts[sorted_cid[i]]."""
     n = order.shape[0]
-    s = torch.arange(cap, device=order.device)
-    valid = s[None, :] < counts[:, None].long()
-    idx = torch.clamp(starts[:, None].long() + s[None, :], 0, max(n - 1, 0))
-    zero = torch.zeros((), dtype=torch.float32, device=order.device)
-    px, py, pz = (torch.where(valid, pos_t[k][idx], zero) for k in range(3))
-    mask = valid.to(torch.float32)
-    pid = torch.where(valid, order[idx], torch.full((), n, dtype=order.dtype,
-                                                    device=order.device))
-    fields = (px, py, pz, mask, pid.to(torch.int32))
-    if values_t is not None:
-        fields += (torch.stack(
-            [torch.where(valid, values_t[k][idx], zero) for k in range(3)]
-        ),)
-    return fields
+    dev = order.device
+    cells = torch.arange(n_cells, dtype=sorted_cid.dtype, device=dev)
+    starts = torch.searchsorted(sorted_cid, cells, side="left")
+    counts = torch.diff(starts, append=torch.full((1,), n, dtype=starts.dtype,
+                                                  device=dev))
+    rank_of = torch.empty(n, dtype=torch.int32, device=dev)
+    rank_of[order] = (torch.arange(n, device=dev)
+                      - starts[sorted_cid.long()]).to(torch.int32)
+    s = torch.arange(cap, device=dev)
+    valid = s[None, :] < counts[:, None]
+    rows = order[torch.clamp(starts[:, None] + s[None, :], 0, max(n - 1, 0))]
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    px, py, pz = (torch.where(valid, x[rows], zero) for x in coords)
+    pid = torch.where(valid, rows, n).to(torch.int32)
+    vals = None if values is None else torch.stack(
+        [torch.where(valid, values[rows, k], zero) for k in range(3)])
+    return Fill(px, py, pz, valid.to(torch.float32), pid, rank_of,
+                (counts > cap).any(), starts.to(torch.int32),
+                counts.to(torch.int32), vals)
 
 
-def fill_cells(pos_t, order, starts, counts, cap, values_t=None):
-    """Cid-sorted rows -> (C, cap) slots: the fill kernel on CUDA tensors,
-    its plain version (``fill_cells_reference``) on CPU tensors."""
-    if pos_t.device.type == "cpu":
-        return fill_cells_reference(pos_t, order, starts, counts, cap, values_t)
-    n = order.shape[0]
-    C = starts.shape[0]
-    dev = pos_t.device
-    pos_t = pos_t.contiguous().to(torch.float32)
-    order = order.contiguous().to(torch.int32)
-    starts = starts.contiguous().to(torch.int32)
-    counts = counts.contiguous().to(torch.int32)
-    if values_t is not None:
-        values_t = values_t.contiguous().to(torch.float32)
-    if pos_t.shape != (3, n) or counts.shape != (C,):
-        raise ValueError("fill_cells: expected pos_t (3, N), starts/counts (C,)")
-    f32 = dict(dtype=torch.float32, device=dev)
-    px, py, pz, mask = (torch.empty((C, cap), **f32) for _ in range(4))
-    pid = torch.empty((C, cap), dtype=torch.int32, device=dev)
-    vout = (torch.empty((3, C, cap), **f32) if values_t is not None else None)
+def _as(t, dtype):
+    """``t`` contiguous in ``dtype`` (no copy when it already is)."""
+    return (t if t.dtype == dtype else t.to(dtype)).contiguous()
+
+
+def _strided(coords):
+    """The three float32 coordinate arrays with one common element stride."""
+    xs = [x if x.dtype == torch.float32 else x.float() for x in coords]
+    if not xs[0].stride(0) == xs[1].stride(0) == xs[2].stride(0):
+        xs = [x.contiguous() for x in xs]
+    return xs, xs[0].stride(0)
+
+
+def fill_cells(sorted_cid, order, coords, n_cells, cap, values=None) -> Fill:
+    """The binning's tail after the sort: the fill kernel on CUDA tensors,
+    its plain version (``fill_cells_reference``) on CPU tensors.  The
+    outputs are views of two buffers (few torch calls: the wrapper is
+    host-bound), every element written by the kernel."""
+    if order.device.type == "cpu":
+        return fill_cells_reference(sorted_cid, order, coords, n_cells, cap,
+                                    values)
+    n, C = order.shape[0], n_cells
+    sorted_cid, order = _as(sorted_cid, torch.int32), _as(order, torch.int64)
+    (x, y, z), stride = _strided(coords)
+    if values is not None:
+        values = _as(values, torch.float32)
+    if (sorted_cid.shape != (n,) or x.shape != (n,)
+            or (values is not None and values.shape != (n, 3))):
+        raise ValueError("fill_cells: expected sorted_cid, order and coords "
+                         "(N,), values (N, 3)")
+    planes = torch.empty((5 if values is None else 8, C, cap),
+                         dtype=torch.float32, device=order.device)
+    px, py, pz, mask, pid, *_ = planes.unbind(0)
+    pid = pid.view(torch.int32)
+    vout = None if values is None else planes[5:]
+    rank_of, starts, counts, flag = torch.empty(
+        n + 2 * C + 1, dtype=torch.int32, device=order.device
+    ).split([n, C, C, 1])
+    overflow = flag.view(torch.bool)[0]
     p = kernels.ptr
     rc = kernels.library().pse_fill_cells(
-        p(pos_t), p(order), p(values_t), p(starts), p(counts), n, C, cap,
-        p(px), p(py), p(pz), p(mask), p(pid), p(vout), kernels.stream_of(pos_t),
+        p(sorted_cid), p(order), p(x), p(y), p(z), stride, p(values), n, C,
+        cap, p(px), p(py), p(pz), p(mask), p(pid), p(vout), p(rank_of),
+        p(starts), p(counts), p(overflow), kernels.stream_of(order),
     )
     fill_cells.launches += 1
     kernels.check("fill_cells", rc)
-    fields = (px, py, pz, mask, pid)
-    return fields + ((vout,) if values_t is not None else ())
+    return Fill(px, py, pz, mask, pid, rank_of, overflow, starts, counts,
+                vout)
 
 
 fill_cells.launches = 0
 
 
-def _cell_starts_counts(sorted_cid, c_total, cap):
-    """Per-cell start offsets / occupancies of the cid-sorted array, the
-    within-cell ranks of the sorted rows, and the overflow flag."""
-    n = sorted_cid.shape[0]
-    dev = sorted_cid.device
-    arange = torch.arange(n, dtype=torch.int64, device=dev)
-    cells = torch.arange(c_total, dtype=sorted_cid.dtype, device=dev)
-    starts = torch.searchsorted(sorted_cid, cells, side="left")
-    counts = torch.diff(torch.cat(
-        [starts, torch.full((1,), n, dtype=starts.dtype, device=dev)]
-    ))
-    is_start = torch.ones(n, dtype=torch.bool, device=dev)
-    is_start[1:] = sorted_cid[1:] != sorted_cid[:-1]
-    seg_start = torch.cummax(
-        torch.where(is_start, arange, torch.zeros_like(arange)), dim=0
-    ).values
-    rank_sorted = arange - seg_start
-    overflow = (rank_sorted >= cap).any()
-    return (starts.to(torch.int32), counts.to(torch.int32),
-            rank_sorted.to(torch.int32), overflow)
-
-
 def _finish_bins(sort, c_total, cap, values=None):
-    """Shared tail of both binnings: ranks, the slot fill, CellBins."""
-    order, sorted_cid, cid, xyz = sort
-    starts, counts, rank_sorted, overflow = _cell_starts_counts(
-        sorted_cid, c_total, cap
-    )
-    rank_of = torch.empty_like(rank_sorted)
-    rank_of[order] = rank_sorted
-    vals_t = None if values is None else values[order].t()
-    fields = fill_cells(torch.stack(xyz), order.to(torch.int32),
-                        starts, counts, cap, vals_t)
-    bins = CellBins(*fields[:5], cell_of=cid.to(torch.int32),
-                    rank_of=rank_of, overflow=overflow)
-    return bins if values is None else (bins, fields[5])
+    """The fill on the sort's output, as CellBins (and the binned values)."""
+    order, sorted_cid, cid, coords = sort
+    f = fill_cells(sorted_cid, order, coords, c_total, cap, values)
+    bins = CellBins(f.px, f.py, f.pz, f.mask, f.pid, cell_of=cid,
+                    rank_of=f.rank_of, overflow=f.overflow)
+    return bins if values is None else (bins, f.values)
 
 
 def fill_operands(pos: torch.Tensor, box: Box, spec: BinSpec, columns: bool):
-    """The fill kernel's operands (pos_t, order, starts, counts) for the
-    binning of ``pos`` by ``bin_columns`` (columns=True) or
-    ``bin_particles``."""
-    sort = (_sort_columns if columns else _sort_particles)(pos, box, spec)
-    order, sorted_cid, _, xyz = sort
-    starts, counts, _, _ = _cell_starts_counts(
-        sorted_cid, spec.n_cells_total, spec.cap)
-    return torch.stack(xyz), order.to(torch.int32), starts, counts
+    """The fill's operands (sorted_cid, order, coords) for the binning of
+    ``pos`` by ``bin_columns`` (columns=True) or ``bin_particles``."""
+    order, sorted_cid, _, coords = (
+        _sort_columns if columns else _sort_particles)(pos, box, spec)
+    return sorted_cid, order, coords
+
+
+@functools.lru_cache(maxsize=None)
+def _cell_grid(n_cells, dtype, device):
+    """(cells per axis in ``dtype``, last cell index per axis) on
+    ``device``, made once: a tensor built from a list in every call copies
+    from the host and waits for the stream."""
+    return (torch.tensor(n_cells, dtype=dtype, device=device),
+            torch.tensor([c - 1 for c in n_cells], dtype=torch.int32,
+                         device=device))
 
 
 def _sort_particles(pos, box: Box, spec: BinSpec):
-    """(order, sorted cid, cid, sorted xyz) of the cell binning."""
+    """(order, sorted cid, cid (N,) i32, unsorted xyz) of the cell
+    binning."""
     ncx, ncy, ncz = spec.n_cells
     frac = make_fraction(box, pos)
     frac = frac - torch.floor(frac)
-    nc = torch.tensor([ncx, ncy, ncz], dtype=pos.dtype, device=pos.device)
-    hi = torch.tensor([ncx - 1, ncy - 1, ncz - 1], dtype=torch.int32,
-                      device=pos.device)
+    nc, hi = _cell_grid(tuple(spec.n_cells), pos.dtype, pos.device)
     cxyz = torch.minimum(
         torch.clamp(torch.floor(frac * nc).to(torch.int32), min=0), hi
     )
     cid = (cxyz[:, 0] * ncy + cxyz[:, 1]) * ncz + cxyz[:, 2]
     # (cid, id) lexicographic: one stable sort on cid keeps index order
-    sorted_cid, order = torch.sort(cid.long(), stable=True)
-    return order, sorted_cid, cid, tuple(pos[order, k] for k in range(3))
+    sorted_cid, order = torch.sort(cid, stable=True)
+    return order, sorted_cid, cid, tuple(pos[:, k] for k in range(3))
 
 
 def _sort_columns(pos, box: Box, spec: BinSpec):
-    """(order, sorted cid, cid, sorted canonical xyz) of the column
-    binning, z ascending within each column."""
+    """(order, sorted cid, cid (N,) i32, unsorted canonical xyz) of the
+    column binning, z ascending within each column."""
     ncx, ncy, ncz = spec.n_cells
     if ncz != 1:
         raise ValueError("bin_columns bins in (x, y) only")
@@ -192,9 +212,8 @@ def _sort_columns(pos, box: Box, spec: BinSpec):
     cid = cx * ncy + cy
     # (cid, z, id) lexicographic: stable sort by z, then stable sort by cid
     _, by_z = torch.sort(z_c, stable=True)
-    sorted_cid, o2 = torch.sort(cid[by_z].long(), stable=True)
-    order = by_z[o2]
-    return order, sorted_cid, cid, (x_c[order], y_c[order], z_c[order])
+    sorted_cid, o2 = torch.sort(cid[by_z], stable=True)
+    return by_z[o2], sorted_cid, cid, (x_c, y_c, z_c)
 
 
 def bin_particles(pos: torch.Tensor, box: Box, spec: BinSpec, values=None):

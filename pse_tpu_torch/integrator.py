@@ -5,7 +5,7 @@ covers: ``engine="banded"``, thermal or athermal, with or without external
 forces, one occupancy class.  One step:
 
   binnings (bin_columns for the near field, bin_particles for the far field;
-  the forces ride both sorts) -> band windows + far-field factors
+  both fills bin the forces) -> band windows + far-field factors
   -> [forces: spread -> rfft -> Green] (+ Hermitian wave noise) -> irfft
   -> far-field contract -> fused near-field build + first matvec (two
   right-hand sides, the forces and the first Lanczos vector, when both
@@ -274,7 +274,7 @@ def _ovf(flag: torch.Tensor, bit: int) -> torch.Tensor:
 def prepare_banded(config: StepConfig, pos, box: Box, forces=None):
     """Binnings, band windows and far-field factors; returns (ctx, the
     overflow mask as a () int32 tensor).  ``forces`` (N, 3), when given,
-    ride both binning sorts into ctx.nf_f / ctx.ff_f (zero in pad slots)."""
+    are binned by both fills into ctx.nf_f / ctx.ff_f (zero in pad slots)."""
     p = config.params
     bs = config.band_spec
     nf_f = ff_f = None

@@ -36,8 +36,8 @@ _F = ctypes.c_float
 # C entry points (csrc/*.cu): each launches on the given stream and returns
 # cudaGetLastError() as an int.
 _SIGNATURES = {
-    "pse_fill_cells": [_P, _P, _P, _P, _P, _I, _I, _I,
-                       _P, _P, _P, _P, _P, _P, _P],
+    "pse_fill_cells": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "pse_banded_build": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
                          _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P],
     "pse_banded_matvec": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

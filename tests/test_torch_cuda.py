@@ -22,8 +22,8 @@ torch = pytest.importorskip("torch")
 from pse_tpu_torch import integrator as pi              # noqa: E402
 from pse_tpu_torch import make_box, make_params         # noqa: E402
 from pse_tpu_torch.cellbins import (                    # noqa: E402
-    BinSpec, bin_columns, bin_particles, fill_cells, fill_cells_reference,
-    fill_operands, vec_to_cells)
+    BinSpec, Fill, bin_columns, bin_particles, fill_cells,
+    fill_cells_reference, fill_operands, vec_to_cells)
 from pse_tpu_torch.ops import banded_nearfield as bdn   # noqa: E402
 from pse_tpu_torch.ops import column_farfield as cff    # noqa: E402
 
@@ -61,15 +61,68 @@ def _setup(n, L, tilt, seed=0, **config):
     return cfg, pos, make_box(L, tilt)
 
 
+def _assert_fill_bitwise(sorted_cid, order, coords, c_total, cap, vals):
+    """Every output of the fill kernel bitwise its plain version's."""
+    got = fill_cells(sorted_cid, order, coords, c_total, cap, vals)
+    want = fill_cells_reference(sorted_cid, order, coords, c_total, cap, vals)
+    for name, a, b in zip(Fill._fields, got, want):
+        if b is None:
+            assert a is None, name
+            continue
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        assert torch.equal(a, b), name
+    return got
+
+
+@pytest.mark.parametrize("with_values", [False, True])
 @pytest.mark.parametrize("columns", [True, False])
-def test_fill_kernel_is_bitwise_the_plain_version(cuda, columns):
+def test_fill_kernel_is_bitwise_the_plain_version(cuda, columns,
+                                                  with_values):
     cfg, pos, box = _setup(5300, 40.0, 0.2)
+    pos[:700, :2] = 0.5                        # one overfull column / cell
     spec = cfg.band_spec.bins if columns else cfg.colff_spec.bins
-    ops = fill_operands(pos, box, spec, columns)
-    vals = torch.randn((3, pos.shape[0]), device=cuda)
-    for a, b in zip(fill_cells(*ops, spec.cap, vals),
-                    fill_cells_reference(*ops, spec.cap, vals)):
-        assert torch.equal(a, b)
+    vals = torch.randn(pos.shape, device=cuda) if with_values else None
+    got = _assert_fill_bitwise(*fill_operands(pos, box, spec, columns),
+                               spec.n_cells_total, spec.cap, vals)
+    assert bool(got.overflow)
+
+
+def _fill_case(case):
+    """(unsorted cell ids, C, cap) of a lumpy occupancy: an overfull cell,
+    empty cells at both ends, or fewer particles than cells."""
+    rng = np.random.default_rng(11)
+    if case == "overfull":         # cell 5 holds 40+ > cap, ends empty
+        cid = np.concatenate([rng.integers(2, 24, size=360), np.full(40, 5)])
+        c_total, cap = 27, 32
+    elif case == "empty_ends":     # cells 0, 1 and 25, 26 empty
+        cid = rng.integers(2, 25, size=400)
+        c_total, cap = 27, 48
+    else:                          # "n_lt_c": 20 particles in 27 cells
+        cid = rng.integers(0, 27, size=20)
+        c_total, cap = 27, 8
+    return rng.permutation(cid).astype(np.int32), c_total, cap
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+@pytest.mark.parametrize("case", ["overfull", "empty_ends", "n_lt_c"])
+def test_fill_kernel_edge_cases_are_bitwise_the_plain_version(
+        cuda, case, with_values):
+    """The fill on the sort of lumpy cell ids (the CPU parity test's cases):
+    ranks >= cap and the overflow flag, empty end cells, N < C."""
+    cid, c_total, cap = _fill_case(case)
+    n = cid.shape[0]
+    rng = np.random.default_rng(12)
+    cid = torch.as_tensor(cid, device=cuda)
+    sorted_cid, order = torch.sort(cid, stable=True)
+    pos = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                          device=cuda)
+    vals = (torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                            device=cuda) if with_values else None)
+    got = _assert_fill_bitwise(sorted_cid, order,
+                               tuple(pos[:, k] for k in range(3)), c_total,
+                               cap, vals)
+    assert bool(got.overflow) == (case == "overfull")
+    assert int(got.counts.sum()) == n
 
 
 @pytest.mark.parametrize("dtype,bound", [("float32", 1e-5),

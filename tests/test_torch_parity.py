@@ -167,6 +167,59 @@ def test_binning_overflow_flag_matches_jax():
                                   np.asarray(jbins.rank_of))
 
 
+def _fill_case(case):
+    """(unsorted cell ids, C, cap) of a lumpy occupancy: an overfull cell,
+    empty cells at both ends, or fewer particles than cells."""
+    rng = np.random.default_rng(11)
+    if case == "overfull":         # cell 5 holds 40+ > cap, ends empty
+        cid = np.concatenate([rng.integers(2, 24, size=360), np.full(40, 5)])
+        c_total, cap = 27, 32
+    elif case == "empty_ends":     # cells 0, 1 and 25, 26 empty
+        cid = rng.integers(2, 25, size=400)
+        c_total, cap = 27, 48
+    else:                          # "n_lt_c": 20 particles in 27 cells
+        cid = rng.integers(0, 27, size=20)
+        c_total, cap = 27, 8
+    return rng.permutation(cid).astype(np.int32), c_total, cap
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+@pytest.mark.parametrize("case", ["overfull", "empty_ends", "n_lt_c"])
+def test_fill_matches_jax_starts_ranks_and_slots(case, with_values):
+    """The fill's plain version against the JAX package's
+    _cell_starts_counts and its Pallas fill (interpret mode), bitwise:
+    starts, counts, ranks (>= cap in an overfull cell), overflow, slots and
+    value rows."""
+    cid, c_total, cap = _fill_case(case)
+    n = cid.shape[0]
+    rng = np.random.default_rng(12)
+    coords = rng.normal(size=(3, n)).astype(np.float32)
+    values = rng.normal(size=(n, 3)).astype(np.float32)
+    order = np.argsort(cid, kind="stable")
+    sorted_cid = cid[order]
+    starts, counts, rank_sorted, overflow = jc._cell_starts_counts(
+        jnp.asarray(sorted_cid), c_total, cap)
+    jfields = jc._fill_cells_pallas(
+        jnp.asarray(coords[:, order]), jnp.asarray(order.astype(np.int32)),
+        starts, counts, c_total, cap, n, interpret=True,
+        values_t=jnp.asarray(values[order].T) if with_values else None)
+    f = pc.fill_cells_reference(
+        torch.as_tensor(sorted_cid), torch.as_tensor(order),
+        tuple(torch.as_tensor(x) for x in coords), c_total, cap,
+        torch.as_tensor(values) if with_values else None)
+    assert bool(overflow) == (case == "overfull") == bool(f.overflow)
+    np.testing.assert_array_equal(f.starts.numpy(), np.asarray(starts))
+    np.testing.assert_array_equal(f.counts.numpy(), np.asarray(counts))
+    np.testing.assert_array_equal(f.rank_of.numpy()[order],
+                                  np.asarray(rank_sorted))
+    got = (f.px, f.py, f.pz, f.mask, f.pid) + (
+        (f.values,) if with_values else ())
+    assert len(jfields) == len(got)
+    for a, b in zip(got, jfields):
+        assert a.numpy().dtype == np.asarray(b).dtype
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 def _bins_both(jcfg, tcfg, pos, tilt):
     jbox, tbox = J.make_box(L, tilt), P.make_box(L, tilt)
     jbins = jc.bin_columns(jnp.asarray(pos), jbox, jcfg.band_spec.bins)
@@ -402,9 +455,13 @@ def test_kernel_wrappers_take_the_plain_path_on_cpu():
     box = P.make_box(L, 0.1)
     before = (pc.fill_cells.launches, pb.build_mv_banded.launches,
               pb.matvec_banded.launches, pf.contract_col_kernel.launches)
-    ops = pc.fill_operands(pos, box, tcfg.band_spec.bins, True)
-    for a, b in zip(pc.fill_cells(*ops, tcfg.band_spec.bins.cap),
-                    pc.fill_cells_reference(*ops, tcfg.band_spec.bins.cap)):
+    spec = tcfg.band_spec.bins
+    ops = pc.fill_operands(pos, box, spec, True)
+    vals = torch.as_tensor(np.random.default_rng(3).normal(
+        size=(N, 3)).astype(np.float32))
+    for a, b in zip(pc.fill_cells(*ops, spec.n_cells_total, spec.cap, vals),
+                    pc.fill_cells_reference(*ops, spec.n_cells_total,
+                                            spec.cap, vals)):
         assert torch.equal(a, b)
     ctx, ovf = pi.prepare_banded(tcfg, pos, box)
     assert int(ovf) == 0
