@@ -14,6 +14,14 @@ Phases (each failure makes the script exit non-zero without the result line):
   [oracle]  mobility() on the card at tests/data/oracle_gate.npz (bf16 blocks
             and far-field factors) against the float64 direct-Ewald u_ref:
             relative 2-norm <= 5e-3;
+  [blocked-small]  the blocked engine on the card against the CPU (N=1080,
+            L=24, tilts 0 and 0.3, same uniforms): the thermal step without
+            and with forces, the athermal step and mobility(), at error 1e-3
+            (bf16 blocks) <= 5e-3 and at 1e-4 (f32 blocks, where banded
+            falls back to blocked) <= 1e-4, and at 1e-3 with colff_spec=None
+            (the stored-weight far field) <= 5e-3;
+  [blocked-oracle]  mobility() with engine="blocked" at oracle_gate.npz
+            against u_ref: relative 2-norm <= 5e-3;
   [main]    the brownian main path: Simulation(N=100k, phi=0.45) with
             PSEv1(T=1, seed=1, xi=0.5, error=1e-3) on engine="banded", a
             warm-up, then 20 timed steps with every kernel's launch count set
@@ -26,8 +34,18 @@ Phases (each failure makes the script exit non-zero without the result line):
   [main-mobility] Simulation.mobility_matvec once at the main path's state;
   [main-blocks]   build_banded_blocks once per tilt (0, 0.3) at the main
             path's state, the standalone build's entry point;
-  [profile] torch.profiler over 3 more steps of each main path: device time
-            by kernel, kernel launches per step and the device's idle share;
+  [blocked], [blocked-forces]  the same Simulation with no engine argument:
+            the default, blocked engine (asserted), a warm-up and 10 timed
+            steps; ms/step, particle-steps/s, the m histogram, the retries,
+            the pair-block bytes, the peak device memory and every kernel's
+            launches (the fill, the contract and, with forces, the spread
+            > 0; the banded kernels 0);
+  [blocked-mobility]  Simulation.mobility_matvec at the blocked state;
+  [sedimentation]  the twin of examples/sedimentation.py on the card (N=10k,
+            L=64, athermal, mobility_matvec and 20 steps);
+  [profile] torch.profiler over 3 more steps of each main path and of the
+            blocked path with forces: device time by kernel, kernel
+            launches per step and the device's idle share;
   [kernels] each kernel against its plain version at the main path's shapes
             (and the spread and the contract at the oracle's), at tilt 0 and
             0.3: the fill bitwise on every output (slots, value rows, ranks,
@@ -42,7 +60,10 @@ Phases (each failure makes the script exit non-zero without the result line):
             <= 1e-4 (bfloat16) (max |diff| / max |plain|); build_mv u vs
             matvec u <= 1e-6 and bitwise (build_mv ends in the matvec); matvec
             (one and two right-hand sides), spread and contract reruns
-            bitwise equal;
+            bitwise equal; the fill also at the blocked near field's 3-D
+            cells (tilts 0 and 0.3, and overfull), and matvec_cells on the
+            card against its CPU run on the same blocks, <= 1e-5 (float32
+            blocks) and <= 2e-3 (bfloat16);
   [timing]  CUDA-event times of each kernel wrapper and its plain version,
             with the least time the card could take (bytes at 3.35 TB/s,
             operations at the peak rate of their type), and torch.bmm as the
@@ -55,7 +76,10 @@ Phases (each failure makes the script exit non-zero without the result line):
             bin_columns and bin_particles with values (CUDA events); the
             matvec's bound counts the A rows of the non-empty tiles, the
             ones the kernel reads, and the bound of all of A is kept beside
-            it;
+            it; the fill at the blocked near field's shape (wrapper, kernel
+            alone, bound), build_pair_blocks and one matvec_cells (CUDA
+            events, with the bytes each must move and their kernel
+            launches per call by torch.profiler);
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -78,6 +102,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, per type
 N, PHI, XI, ERROR, SEED, DT = 100_000, 0.45, 0.5, 1e-3, 1, 1e-3
 WARM_STEPS, TIMED_STEPS = 5, 20
+BLOCKED_WARM, BLOCKED_TIMED = 3, 10
 ORACLE = os.path.join(HERE, "tests", "data", "oracle_gate.npz")
 
 
@@ -171,9 +196,9 @@ def phase_build():
 
 
 def _raw_uniforms(config, seed):
-    bs, p = config.band_spec.bins, config.params
+    bs, p = (config.band_spec or config.nf_spec).bins, config.params
     rng = np.random.default_rng(seed)
-    C = bs.n_cells[0] * bs.n_cells[1]
+    C = bs.n_cells_total
     psi = rng.uniform(-math.sqrt(3), math.sqrt(3), (3, C, bs.cap))
     wave = rng.uniform(-math.sqrt(1.5), math.sqrt(1.5),
                        (6, p.Nx, p.Ny, p.Nz // 2 + 1))
@@ -289,15 +314,104 @@ def phase_oracle(ph):
         ph.failed.append("oracle mobility overflowed or is not finite")
 
 
-def _step_wrappers(forces: bool):
-    """The kernel wrappers a main-path step launches."""
+def phase_blocked_small(ph):
+    """The blocked engine on the card vs on the CPU at N=1080, L=24: the
+    thermal step without and with forces, the athermal step and mobility(),
+    same uniforms."""
+    import dataclasses
+
+    import torch
+
+    from pse_tpu_torch import integrator, make_params
+
+    print("[blocked-small] the blocked engine on the card vs the CPU plain "
+          "path (N=1080, L=24)")
+    rng = np.random.default_rng(14)
+    n, L = 1080, 24.0
+    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
+    forces = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    for error, bound, far in ((1e-3, 5e-3, "column"), (1e-4, 1e-4, "column"),
+                              (1e-3, 5e-3, "stored")):
+        params = make_params(xi=XI, error=error, L=L)
+        # at 1e-4 ask for banded: the geometry is too small to band there
+        engine = "banded" if error < 1e-3 else "blocked"
+        for thermal, has_forces in ((True, False), (True, True),
+                                    (False, True)):
+            cpu, gpu = (integrator.make_config(
+                params, n, engine=engine, thermal=thermal,
+                has_forces=has_forces, seed=3, device=dev) for dev in
+                ("cpu", "cuda"))
+            if far == "stored":
+                cpu, gpu = (dataclasses.replace(c, colff_spec=None)
+                            for c in (cpu, gpu))
+            if gpu.engine != "blocked":
+                ph.failed.append(f"error={error:g} engine={engine}: got "
+                                 f"{gpu.engine}, expected blocked")
+                continue
+            draws = _raw_uniforms(cpu, 6) if thermal else None
+            f_c = forces if has_forces else None
+            f_g = forces.cuda() if has_forces else None
+            kind = ("athermal" if not thermal else
+                    "thermal+forces" if has_forces else "brownian")
+            label = (f"blocked {kind} error={error:g} {far} far field, "
+                     f"{gpu.nf_spec.block_dtype} blocks")
+            for tilt, rate in ((0.0, 0.0), (0.3, 0.5)):
+                s_c, i_c = integrator.step(
+                    cpu, integrator.make_state(pos, 3, tilt, "cpu"), f_c,
+                    1.0 if thermal else 0.0, DT, rate, None, uniforms=draws)
+                s_g, i_g = integrator.step(
+                    gpu, integrator.make_state(pos, 3, tilt, "cuda"), f_g,
+                    1.0 if thermal else 0.0, DT, rate, None, uniforms=draws)
+                r, _ = rel_max(i_g["velocities"].cpu(), i_c["velocities"])
+                ph.check(f"{label} step tilt={tilt} m={i_g['m_lanczos']}/"
+                         f"{i_c['m_lanczos']}", r, bound)
+                if i_g["m_lanczos"] != i_c["m_lanczos"]:
+                    ph.failed.append(f"{label} tilt={tilt}: m differs")
+                if int(s_g.nbr_overflow) or not torch.isfinite(s_g.pos).all():
+                    ph.failed.append(f"{label} tilt={tilt} overflow")
+                if kind != "athermal":
+                    continue
+                u_c, _ = integrator.mobility(cpu, pos, forces, tilt)
+                u_g, o_g = integrator.mobility(gpu, pos, forces.cuda(), tilt)
+                r, _ = rel_max(u_g.cpu(), u_c)
+                ph.check(f"blocked mobility error={error:g} {far} far field "
+                         f"tilt={tilt}", r, bound)
+                if int(o_g):
+                    ph.failed.append(f"{label} mobility tilt={tilt} overflow")
+
+
+def phase_blocked_oracle(ph):
+    """mobility() on the blocked engine against the float64 oracle."""
+    from pse_tpu_torch import integrator, make_params
+
+    d = np.load(ORACLE)
+    n = int(d["n"])
+    params = make_params(xi=float(d["xi"]), error=ERROR, L=float(d["L"]))
+    cfg = integrator.make_config(params, n, thermal=False, engine="blocked",
+                                 device="cuda")
+    print(f"[blocked-oracle] blocked mobility() at oracle_gate.npz: N={n}, "
+          f"cells {cfg.nf_spec.bins.n_cells} cap {cfg.nf_spec.bins.cap} "
+          f"{cfg.nf_spec.block_dtype} blocks, far-field factors "
+          f"{cfg.colff_spec.weight_dtype}")
+    u, ovf = integrator.mobility(cfg, d["pos"], d["forces"])
+    u = u.double().cpu().numpy()
+    rel = float(np.linalg.norm(u - d["u_ref"]) / np.linalg.norm(d["u_ref"]))
+    ph.check("blocked mobility vs f64 oracle (relative 2-norm)", rel, 5e-3)
+    if int(ovf) or not np.isfinite(u).all():
+        ph.failed.append("blocked oracle mobility overflowed or not finite")
+
+
+def _step_wrappers(forces: bool, blocked: bool = False):
+    """The kernel wrappers a main-path step launches (on the blocked
+    engine: the fills, the contract and, with forces, the spread)."""
     from pse_tpu_torch.cellbins import fill_cells
     from pse_tpu_torch.ops.banded_nearfield import build_mv_banded, matvec_banded
     from pse_tpu_torch.ops.column_farfield import (contract_col_kernel,
                                                    spread_moments_kernel)
 
-    w = {"fill_cells": fill_cells, "build_mv_banded": build_mv_banded,
-         "matvec_banded": matvec_banded, "contract_col": contract_col_kernel}
+    w = {"fill_cells": fill_cells, "contract_col": contract_col_kernel}
+    if not blocked:
+        w.update(build_mv_banded=build_mv_banded, matvec_banded=matvec_banded)
     if forces:
         w["spread_col"] = spread_moments_kernel
     return w
@@ -328,14 +442,18 @@ def _counted(ph, label, expected, fn):
     return out, launches
 
 
-def phase_main(ph, forces: bool):
-    """A main path through the user entry points; returns the run data."""
+def phase_main(ph, forces: bool, blocked: bool = False):
+    """A main path through the user entry points; returns the run data.
+    ``blocked``: set_integrator without an engine, i.e. the default,
+    blocked engine, with fewer steps (its near field is plain PyTorch)."""
     import torch
 
     import pse_tpu_torch as pse
 
     pos, L = make_positions(N, PHI, seed=0)
-    label = "main-forces" if forces else "main"
+    label = ("blocked" if blocked else "main") + ("-forces" if forces else "")
+    warm, timed = (BLOCKED_WARM, BLOCKED_TIMED) if blocked else (WARM_STEPS,
+                                                                 TIMED_STEPS)
     force_fn = None
     if forces:
         # bench.py's with-forces workload: one fixed random force array
@@ -345,29 +463,38 @@ def phase_main(ph, forces: bool):
         def force_fn(pos, t):
             return F
     print(f"[{label}] Simulation N={N} phi={PHI} L={L:.4f} xi={XI} "
-          f"error={ERROR} engine=banded force_fn={'fixed random' if forces else None}")
+          f"error={ERROR} engine={'default' if blocked else 'banded'} "
+          f"force_fn={'fixed random' if forces else None}")
     sim = pse.Simulation(positions=pos, L=L, dt=DT, sync_every=10,
                          force_fn=force_fn, device="cuda")
-    sim.set_integrator(pse.PSEv1(T=1.0, seed=SEED, xi=XI, error=ERROR),
-                       engine="banded", verbose=False)
-    t0 = time.perf_counter()
-    sim.run(WARM_STEPS)
+    method = pse.integrate.PSEv1(T=1.0, seed=SEED, xi=XI, error=ERROR)
+    if blocked:
+        sim.set_integrator(method, verbose=False)
+        if sim.config.engine != "blocked":
+            ph.failed.append(f"{label}: the default engine is "
+                             f"{sim.config.engine}, expected blocked")
+    else:
+        sim.set_integrator(method, engine="banded", verbose=False)
     torch.cuda.synchronize()
-    print(f"  warm-up {WARM_STEPS} steps: {time.perf_counter() - t0:.2f} s, "
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim.run(warm)
+    torch.cuda.synchronize()
+    print(f"  warm-up {warm} steps: {time.perf_counter() - t0:.2f} s, "
           f"overflow retries {sim.metrics['overflow_retries']}")
     retries0 = sim.metrics["overflow_retries"]
     hist0 = dict(sim.metrics["m_lanczos_hist"])
     t0 = time.perf_counter()
-    _, launches = _counted(ph, label, _step_wrappers(forces),
-                           lambda: sim.run(TIMED_STEPS))
+    _, launches = _counted(ph, label, _step_wrappers(forces, blocked),
+                           lambda: sim.run(timed))
     wall = time.perf_counter() - t0
     hist = {m: c - hist0.get(m, 0)
             for m, c in sim.metrics["m_lanczos_hist"].items()
             if c - hist0.get(m, 0)}
     retries = sim.metrics["overflow_retries"] - retries0
-    ms_step = 1e3 * wall / TIMED_STEPS
-    print(f"  {TIMED_STEPS} steps: {ms_step:.3f} ms/step, "
-          f"{N * TIMED_STEPS / wall:.6g} particle-steps/s (host clock, "
+    ms_step = 1e3 * wall / timed
+    print(f"  {timed} steps: {ms_step:.3f} ms/step, "
+          f"{N * timed / wall:.6g} particle-steps/s (host clock, "
           f"includes overflow retries: {retries})")
     print(f"  m_lanczos histogram {dict(sorted(hist.items()))}; overflow "
           f"retries total {sim.metrics['overflow_retries']}")
@@ -376,31 +503,76 @@ def phase_main(ph, forces: bool):
         ph.failed.append(f"{label} positions not finite (N, 3)")
     if int(sim.state.nbr_overflow):
         ph.failed.append(f"{label} ended with an overflow")
-    bs = sim.config.band_spec
-    print(f"  final config: band cap {bs.bins.cap} W {bs.window} R {bs.rows} "
-          f"{bs.block_dtype}; far-field cap {sim.config.colff_spec.bins.cap} "
-          f"{sim.config.colff_spec.weight_dtype}; m_max {sim.config.m_max}")
+    cfg = sim.config
+    if blocked:
+        for k in ("build_mv_banded", "matvec_banded", "build_banded_blocks"):
+            if launches[k]:
+                ph.failed.append(f"{k} launched on the {label} path")
+        nf = cfg.nf_spec
+        C, cap = nf.bins.n_cells_total, nf.bins.cap
+        item = torch.empty((), dtype=getattr(torch, nf.block_dtype)
+                           ).element_size()
+        print(f"  final config: near-field cells {nf.bins.n_cells} cap {cap}, "
+              f"{len(nf.offsets)} offsets, pair blocks "
+              f"{len(nf.offsets) * 6 * C * cap * cap * item / 1e9:.3f} GB "
+              f"{nf.block_dtype}; far-field cap {cfg.colff_spec.bins.cap} "
+              f"{cfg.colff_spec.weight_dtype}; m_max {cfg.m_max}; peak device "
+              f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+              "(torch.cuda.max_memory_allocated)")
+    else:
+        bs = cfg.band_spec
+        print(f"  final config: band cap {bs.bins.cap} W {bs.window} R "
+              f"{bs.rows} {bs.block_dtype}; far-field cap "
+              f"{cfg.colff_spec.bins.cap} {cfg.colff_spec.weight_dtype}; "
+              f"m_max {cfg.m_max}")
     return sim, launches, ms_step
 
 
-def phase_mobility(ph, sim):
-    """Simulation.mobility_matvec at the main path's state: finite, and
+def phase_mobility(ph, sim, label="main-mobility"):
+    """Simulation.mobility_matvec at a main path's state: finite, and
     the fixed forces' U = M F is the near field plus the far field."""
     import torch
 
-    print("[main-mobility] Simulation.mobility_matvec at the main path's state")
+    print(f"[{label}] Simulation.mobility_matvec at the "
+          f"{sim.config.engine} path's state")
     F = sim.force_fn(sim.state.pos, sim.state.step)
-    u, launches = _counted(
-        ph, "main-mobility", ("fill_cells", "build_mv_banded", "contract_col",
-                              "spread_col"),
-        lambda: sim.mobility_matvec(F))
+    expected = ["fill_cells", "contract_col", "spread_col"]
+    if sim.config.engine == "banded":
+        expected.append("build_mv_banded")
+    u, launches = _counted(ph, label, expected,
+                           lambda: sim.mobility_matvec(F))
     if u.shape != (N, 3) or not bool(torch.isfinite(u).all()):
-        ph.failed.append("mobility_matvec at the main path not finite (N, 3)")
+        ph.failed.append(f"{label}: mobility_matvec not finite (N, 3)")
     # U.F = F.M.F > 0 for the SPD mobility
     print(f"  |U| max {float(u.abs().max()):.4f}, F.U/N {float((u * F).sum()) / N:.6f}")
     if not float((u * F).sum()) > 0:
-        ph.failed.append("mobility_matvec: F.M.F is not positive")
+        ph.failed.append(f"{label}: F.M.F is not positive")
     return launches
+
+
+def phase_sedimentation(ph):
+    """The port's twin of examples/sedimentation.py on the card, cut to 20
+    steps: N=10k, L=64, athermal, on the default engine."""
+    import torch
+
+    from pse_tpu_torch.examples import sedimentation
+
+    print("[sedimentation] pse_tpu_torch/examples/sedimentation.py on the "
+          "card, 20 steps")
+    t0 = time.perf_counter()
+    (sim, u), launches = _counted(
+        ph, "sedimentation", ("fill_cells", "contract_col", "spread_col"),
+        lambda: sedimentation.main("cuda", 20))
+    print(f"  {time.perf_counter() - t0:.2f} s, engine {sim.config.engine}, "
+          f"{sim.metrics_summary()}")
+    pos = sim.snapshot()["pos"]
+    if (sim.config.engine != "blocked" or sim.snapshot()["step"] != 20
+            or not np.isfinite(pos).all() or not np.isfinite(u).all()
+            or not u[:, 2].mean() < 0):
+        ph.failed.append("sedimentation: not blocked, not 20 steps, not "
+                         "finite, or not settling")
+    del sim
+    torch.cuda.empty_cache()
 
 
 def phase_blocks(ph, sim):
@@ -565,11 +737,13 @@ def _mismatches(a, b):
 def _check_fill(ph, results, config, pos, box, vals, label, overfull):
     """The fill kernel against its plain version on the same sort, every
     output bitwise (slots, value rows, ranks, overflow, starts, counts),
-    for both binnings."""
+    for both binnings of the config's engine."""
     from pse_tpu_torch import cellbins as cb
 
-    for name, spec, columns in (("near", config.band_spec.bins, True),
-                                ("far", config.colff_spec.bins, False)):
+    near = (("near", config.band_spec.bins, True) if config.band_spec
+            else ("near blocked", config.nf_spec.bins, False))
+    for name, spec, columns in (near, ("far", config.colff_spec.bins,
+                                       False)):
         ops = cb.fill_operands(pos, box, spec, columns)
         C, cap = spec.n_cells_total, spec.cap
         got = cb.fill_cells(*ops, C, cap, vals)
@@ -589,8 +763,53 @@ def _check_fill(ph, results, config, pos, box, vals, label, overfull):
             0.0 if sum(bad.values()) == 0 else math.inf)
 
 
-def phase_kernels(ph, sim, results):
-    """Each kernel against its plain version at the main path's shapes."""
+def _check_blocked(ph, results, sim, vals):
+    """At the blocked path's shapes: the fill bitwise for its 3-D cells and
+    its far-field columns at tilts 0 and 0.3 and overfull, and
+    matvec_cells on the card against its CPU run on the same blocks."""
+    import torch
+
+    from pse_tpu_torch.box import make_box
+    from pse_tpu_torch.cellbins import bin_particles
+    from pse_tpu_torch.ops import blocked_nearfield as bnf
+
+    config, p = sim.config, sim.config.params
+    pos = sim.state.pos
+    lump = pos.clone()
+    lump[:2000] = 0.5                   # one overfull cell
+    for tilt, where, at in ((0.0, "blocked", pos), (0.3, "blocked", pos),
+                            (0.3, "blocked overfull", lump)):
+        _check_fill(ph, results, config, at, make_box(p.L, tilt), vals,
+                    f"tilt={tilt} {where}", where.endswith("overfull"))
+    box = make_box(p.L, 0.3)
+    bins = bin_particles(pos, box, config.nf_spec.bins)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(13)
+    f = torch.randn((3,) + tuple(bins.px.shape), generator=g,
+                    device="cuda") * bins.mask
+    cpu_bins = bins._replace(**{k: getattr(bins, k).cpu()
+                                for k in bins._fields})
+    for dtype, bound in (("float32", 1e-5), ("bfloat16", 2e-3)):
+        spec = config.nf_spec._replace(block_dtype=dtype)
+        blocks = bnf.build_pair_blocks(bins, box, spec, config.cheb,
+                                       p.ewald_cut, p.ewald_dr)
+        u_g = bnf.matvec_cells(blocks, spec, bins, f, p.self_mobility)
+        blocks = blocks.cpu()
+        u_c = bnf.matvec_cells(blocks, spec, cpu_bins, f.cpu(),
+                               p.self_mobility)
+        del blocks
+        ph.check(f"matvec_cells card vs CPU, {dtype} blocks, blocked shapes "
+                 f"tilt=0.3", rel_max(u_g.cpu(), u_c)[0], bound)
+        _check_rerun(ph, f"matvec_cells {dtype}", u_g, lambda: bnf.matvec_cells(
+            bnf.build_pair_blocks(bins, box, spec, config.cheb, p.ewald_cut,
+                                  p.ewald_dr), spec, bins, f,
+            p.self_mobility))
+        torch.cuda.empty_cache()
+
+
+def phase_kernels(ph, sim, results, simb=None):
+    """Each kernel against its plain version at the main path's shapes (and
+    the fill and the blocked matvec at the blocked path's, from ``simb``)."""
     import torch
 
     from pse_tpu_torch import integrator, make_params
@@ -671,6 +890,9 @@ def phase_kernels(ph, sim, results):
         _check_contract(ph, results, config, pos, tilt, "main")
         _check_spread(ph, results, config, pos, tilt, "main")
         torch.cuda.synchronize()
+
+    if simb is not None:
+        _check_blocked(ph, results, simb, vals)
 
     d = np.load(ORACLE)
     params = make_params(xi=float(d["xi"]), error=ERROR, L=float(d["L"]))
@@ -859,6 +1081,71 @@ def phase_timing(sim, results):
           f"({sfac.wxy.dtype} in and out) {results['spread_col']['library_ms']:.4f} ms")
 
 
+def phase_blocked_timing(simb, results):
+    """The fill at the blocked near field's shape (tilt 0.3), and
+    build_pair_blocks and one matvec_cells, by CUDA events, beside the
+    bytes each must move."""
+    import torch
+
+    from pse_tpu_torch import cellbins as cb
+    from pse_tpu_torch.ab import device_profile
+    from pse_tpu_torch.box import make_box
+    from pse_tpu_torch.ops import blocked_nearfield as bnf
+
+    config, p = simb.config, simb.config.params
+    pos, nf = simb.state.pos, config.nf_spec
+    box = make_box(p.L, 0.3)
+    C, cap = nf.bins.n_cells_total, nf.bins.cap
+    print(f"[timing] blocked path: cells {nf.bins.n_cells} cap {cap}")
+    ops = cb.fill_operands(pos, box, nf.bins, False)
+    vals = simb.force_fn(pos, 0)
+    fl = results["fill_cells"]
+    fl.update(
+        blocked_ms=cuda_ms(lambda: cb.fill_cells(*ops, C, cap, vals), 50),
+        blocked_plain_ms=cuda_ms(
+            lambda: cb.fill_cells_reference(*ops, C, cap, vals), 20),
+        blocked_kernel_ms=graph_ms(lambda: cb.fill_cells(*ops, C, cap, vals),
+                                   20),
+        blocked_bound_ms=1e3 * (40 * N + 32 * C * cap + 8 * C + 1)
+        / HBM_BYTES_PER_S)
+    print(f"  fill (blocked near field, with values): wrapper "
+          f"{fl['blocked_ms']:.4f} ms (CUDA events), kernel alone "
+          f"{fl['blocked_kernel_ms']:.4f} ms (CUDA-graph replay), bound "
+          f"{fl['blocked_bound_ms']:.4f} ms by bytes, plain "
+          f"{fl['blocked_plain_ms']:.4f} ms")
+    bins = cb.bin_particles(pos, box, nf.bins)
+    item = torch.empty((), dtype=getattr(torch, nf.block_dtype)).element_size()
+    block_bytes = len(nf.offsets) * 6 * C * cap * cap * item
+    slots = 4 * C * cap * 4
+
+    def build():
+        return bnf.build_pair_blocks(bins, box, nf, config.cheb, p.ewald_cut,
+                                     p.ewald_dr)
+    blocks = build()
+    f = torch.randn((3, C, cap), device="cuda") * bins.mask
+    b_ms = cuda_ms(build, 3)
+    m_ms = cuda_ms(lambda: bnf.matvec_cells(blocks, nf, bins, f,
+                                            p.self_mobility), 5)
+    for name, ms, nbytes, fn in (
+            ("build_pair_blocks", b_ms, slots + block_bytes, build),
+            ("matvec_cells", m_ms, block_bytes + 2 * 3 * C * cap * 4,
+             lambda: bnf.matvec_cells(blocks, nf, bins, f,
+                                      p.self_mobility))):
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        prof = device_profile(fn, reps=2)
+        results.setdefault("blocked", {})[name] = {
+            "ms": ms, "bytes": nbytes, "bound_ms": bound,
+            "launches_per_call": prof["launches"],
+            "copies_per_call": prof["copies"]}
+        print(f"  {name}: {ms:.4f} ms (CUDA events), must move "
+              f"{nbytes / 1e9:.3f} GB: bound {bound:.4f} ms by bytes, "
+              f"{100 * bound / ms:.1f} % of it; {prof['launches']:.0f} "
+              f"kernel launches and {prof['copies']:.0f} copies and "
+              "memsets per call (torch.profiler)")
+    del blocks
+    torch.cuda.empty_cache()
+
+
 def device_line():
     try:
         out = subprocess.run(
@@ -912,6 +1199,8 @@ def main() -> int:
     phase_small(ph)
     phase_forces_small(ph)
     phase_oracle(ph)
+    phase_blocked_small(ph)
+    phase_blocked_oracle(ph)
     sim, _, ms_b = phase_main(ph, forces=False)
     phase_profile(sim, ms_b, "brownian main-path")
     del sim
@@ -920,10 +1209,17 @@ def main() -> int:
     phase_mobility(ph, simf)
     launches["build_banded_blocks"] = phase_blocks(
         ph, simf)["build_banded_blocks"]
+    sim, _, ms_bb = phase_main(ph, forces=False, blocked=True)
+    del sim
+    simb, launches_b, ms_bf = phase_main(ph, forces=True, blocked=True)
+    phase_profile(simb, ms_bf, "with-forces blocked")
+    phase_mobility(ph, simb, "blocked-mobility")
+    phase_sedimentation(ph)
     results = {name: {"err": [], "library_ms": None}
                for name, _, _ in KERNELS}
-    phase_kernels(ph, simf, results)
+    phase_kernels(ph, simf, results, simb)
     phase_timing(simf, results)
+    phase_blocked_timing(simb, results)
 
     line = []
     for name, src, replaces in KERNELS:
@@ -935,15 +1231,21 @@ def main() -> int:
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            "launches_blocked": launches_b[name],
             **{k: r[k] for k in ("kernel_ms", "kernel_ms_1rhs",
                                  "bound_full_A_ms", "bin_columns_ms",
-                                 "bin_particles_ms") if k in r},
+                                 "bin_particles_ms", "blocked_ms",
+                                 "blocked_kernel_ms", "blocked_bound_ms",
+                                 "blocked_plain_ms") if k in r},
         })
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
               f"launches {launches[name]}")
+    print(f"blocked near field (not kernels): {json.dumps(results['blocked'])}")
     print(f"total {time.perf_counter() - t_start:.1f} s; main paths "
-          f"{ms_b:.3f} ms/step (brownian), {ms_f:.3f} ms/step (with forces)")
+          f"{ms_b:.3f} ms/step (brownian), {ms_f:.3f} ms/step (with forces); "
+          f"blocked {ms_bb:.3f} ms/step (brownian), {ms_bf:.3f} ms/step "
+          "(with forces)")
     if ph.failed:
         print("FAILED: " + "; ".join(map(str, ph.failed)))
         return 1

@@ -1,15 +1,26 @@
 """pse_tpu_torch: the PyTorch/CUDA port of pse_tpu (Positively Split Ewald
 Brownian dynamics) for one NVIDIA H100.
 
-It runs the step of the banded engine (z-sorted column near field +
-z-column far field), thermal or athermal, with or without external forces
-(``Simulation(force_fn=...)``), and the deterministic U = M F
-(``integrator.mobility``, ``Simulation.mobility_matvec``), with hand-written
-CUDA kernels (``csrc/``, built by ``nvcc`` for sm_90a at first use) and a
-plain PyTorch version of every kernel that the wrappers run on CPU
-tensors.  Entry points
-run on ``cuda`` unless the caller passes ``device="cpu"``.  This package
-imports ``torch``, numpy and scipy; it never imports ``jax`` or ``pse_tpu``.
+It runs the step of the blocked engine (the default: 3-D cell pair blocks
++ z-column far field) and of the banded engine (z-sorted column near
+field), thermal or athermal, with or without external forces
+(``Simulation(force_fn=...)``), on all particles or a ``PSEv1.group``
+subset, and the deterministic U = M F (``integrator.mobility``,
+``Simulation.mobility_matvec``), with hand-written CUDA kernels (``csrc/``,
+built by ``nvcc`` for sm_90a at first use) and a plain PyTorch version of
+every kernel that the wrappers run on CPU tensors.  The user surface is the
+reference's::
+
+    import pse_tpu_torch as pse
+
+    sim = pse.Simulation(positions=pos, L=L, dt=1e-3)
+    sim.set_integrator(pse.integrate.PSEv1(T=1.0, seed=1, xi=0.5,
+                                           error=1e-3))
+    sim.run(1000)
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+This package imports ``torch``, numpy and scipy; it never imports ``jax``
+or ``pse_tpu``.
 """
 
 from . import box
@@ -17,6 +28,8 @@ from . import params
 from . import tables
 from . import shear as shear_function
 from . import integrator
+from . import integrate
+from . import variant
 from .api import PSEv1, Simulation, create_lattice
 from .box import Box, make_box
 from .integrator import (State, StepConfig, make_state, mobility,

@@ -5,8 +5,8 @@ PyTorch counterpart of ``pse_tpu/api.py``:
     import pse_tpu_torch as pse
 
     sim = pse.Simulation(positions=pos, L=L, dt=1e-3)      # device="cuda"
-    sim.set_integrator(pse.PSEv1(T=1.0, seed=1, xi=0.5, error=1e-3),
-                       engine="banded")
+    sim.set_integrator(pse.integrate.PSEv1(T=1.0, seed=1, xi=0.5,
+                                           error=1e-3))
     sim.run(1000)
 
 ``run`` steps on the device from a host loop; at chunk boundaries it reads
@@ -14,9 +14,11 @@ the sticky overflow mask and, if a capacity overflowed, rewinds the chunk,
 grows the named capacities and runs it again.  ``force_fn(pos, step)``
 returns the (N, 3) forces at the current positions as a tensor on the
 simulation's device (it is called every step, with no host sync);
-``mobility_matvec`` is the deterministic U = M F.  The port covers the
-banded engine: the other engines and ``PSEv1.group`` raise
-``NotImplementedError`` (see integrator.make_config).
+``mobility_matvec`` is the deterministic U = M F.  The port runs the
+blocked engine (the default) and the banded one; the gather engine raises
+``NotImplementedError`` (see integrator.make_config).  A ``PSEv1.group``
+integrates a subset: the hydrodynamic system is the group's members, and
+the other particles stay where they are (``force_fn`` still sees them).
 """
 
 from __future__ import annotations
@@ -31,8 +33,8 @@ import torch
 from . import shear as shear_function
 from .box import Box, make_box
 from .integrator import (
-    State, StepConfig, grow_config, make_config, make_state, mobility,
-    state_from_arrays, step as _step,
+    OVF_BAND, OVF_FF, OVF_NF, State, StepConfig, grow_config, make_config,
+    make_state, mobility, state_from_arrays, step as _step,
 )
 from .params import make_params
 
@@ -41,8 +43,9 @@ from .params import make_params
 class PSEv1:
     """Integration-method description (the reference's integrate.PSEv1
     arguments, integrate.py:32).  ``nlist_type`` is checked as the JAX
-    package checks it; the banded engine bins directly and uses none.
-    ``group`` (a particle subset) is not ported: set_integrator raises."""
+    package checks it; the banded and blocked engines bin directly and use
+    none.  ``group``: None for all particles, or an index array of the
+    subset to integrate (Stokes.cc:85-111)."""
 
     T: float | Callable = 1.0
     seed: int = 0
@@ -62,13 +65,13 @@ class PSEv1:
             import warnings
 
             # The reference's tree backend (NeighborListGPUTree) builds a
-            # neighbour list; the banded engine builds none (it bins the
-            # particles into z-sorted columns each step), so the option
+            # neighbour list; the banded and blocked engines build none
+            # (they bin the particles into cells each step), so the option
             # is accepted for API parity and changes nothing.
             warnings.warn(
-                "nlist_type='tree' has no effect on the GPU banded engine, "
-                "which bins particles into z-sorted columns and builds no "
-                "neighbour list (results identical to 'cell')",
+                "nlist_type='tree' has no effect on the GPU banded engine "
+                "or the blocked one, which bin particles into cells and "
+                "build no neighbour list (results identical to 'cell')",
                 stacklevel=2,
             )
 
@@ -118,6 +121,7 @@ class Simulation:
         self.sync_every = int(sync_every)
         self.method: Optional[PSEv1] = None
         self.config: Optional[StepConfig] = None
+        self._group: Optional[torch.Tensor] = None
         self.shear_variant: Optional[shear_function.ShearVariant] = None
         self.state = make_state(self.positions0, tilt_xy=tilt_xy,
                                 device=self.device)
@@ -148,13 +152,19 @@ class Simulation:
             xi=method.xi, error=method.error, L=self.L, max_strain=method.max_strain
         )
         thermal = callable(method.T) or float(method.T) != 0.0
+        self._group, n_hydro = None, self.n
         if method.group is not None:
-            raise NotImplementedError(
-                "PSEv1.group subsets are not ported to pse_tpu_torch yet "
-                "(ROADMAP.md, Queue A)"
-            )
+            g = np.unique(np.asarray(method.group, np.int32).ravel())
+            if g.size == 0 or g.min() < 0 or g.max() >= self.n:
+                raise ValueError(
+                    f"group indices must be unique and in [0, {self.n})"
+                )
+            if g.size < self.n:         # a group of everyone is no subset
+                self._group = torch.as_tensor(g, dtype=torch.int64,
+                                              device=self.device)
+                n_hydro = int(g.size)
         self.config = make_config(
-            params, self.n, thermal=thermal, seed=method.seed, engine=engine,
+            params, n_hydro, thermal=thermal, seed=method.seed, engine=engine,
             max_tilt=method.max_strain, max_neighbors=max_neighbors,
             has_forces=self.force_fn is not None, device=self.device,
         )
@@ -194,6 +204,16 @@ class Simulation:
             )
         return self
 
+    def stop_shear(self, max_strain: float | None = None):
+        """Replace the shear protocol with zero steady shear
+        (integrate.py:121-123).  Defaults to the max_strain the integrator
+        was built with (a larger value would be rejected by set_params)."""
+        if max_strain is None:
+            max_strain = self._built_max_strain
+        return self.set_params(
+            function_form=shear_function.steady(dt=0.0), max_strain=max_strain
+        )
+
     def enable_shear_box(self, total_timesteps: int, max_strain: float = 0.5):
         """Register the box-tilting variant (variant.py:15-32 and the
         hoomd.update.box_resize analogue)."""
@@ -213,9 +233,19 @@ class Simulation:
                     if self.shear_variant is not None else None)
         forces = (self.force_fn(state.pos, t) if self.force_fn is not None
                   else None)
-        return _step(self.config, state, forces,
-                     float(method.temperature(t)), self.dt,
-                     float(method.shear_rate(t)), new_tilt)
+        args = (float(method.temperature(t)), self.dt,
+                float(method.shear_rate(t)), new_tilt)
+        g = self._group
+        if g is None:
+            return _step(self.config, state, forces, *args)
+        # the group's members are the hydrodynamic system; the others stay
+        # where they are
+        sub = state._replace(pos=state.pos[g], images=state.images[g])
+        new_sub, info = _step(self.config, sub,
+                              None if forces is None else forces[g], *args)
+        pos, images = state.pos.clone(), state.images.clone()
+        pos[g], images[g] = new_sub.pos, new_sub.images
+        return new_sub._replace(pos=pos, images=images), info
 
     # -- host loop --------------------------------------------------------
 
@@ -243,7 +273,7 @@ class Simulation:
                     raise RuntimeError(
                         f"capacity overflow persists after {max_regrow} "
                         "regrows; the configuration density is outside what "
-                        "the banded layout can absorb"
+                        f"the {self.config.engine} engine's layout can absorb"
                     )
                 self.config = grow_config(self.config, flags=flags)
                 self.state = snapshot
@@ -283,9 +313,17 @@ class Simulation:
         """Deterministic U = M F (N, 3) at the current configuration."""
         u, overflow = mobility(self.config, self.state.pos, forces,
                                self.state.tilt_xy)
-        if int(overflow):
-            raise RuntimeError("capacity overflow in mobility; enlarge the "
-                               "spec (integrator.grow_config)")
+        flags = int(overflow)
+        if flags:
+            cfg = self.config
+            specs = ((OVF_NF, "band_spec" if cfg.engine == "banded"
+                      else "nf_spec"), (OVF_BAND, "band_spec window"),
+                     (OVF_FF, "colff_spec" if cfg.colff_spec is not None
+                      else "ff_spec"))
+            raise RuntimeError(
+                "capacity overflow in mobility ("
+                + ", ".join(name for bit, name in specs if flags & bit)
+                + "); enlarge it (integrator.grow_config)")
         return u
 
     def snapshot(self) -> dict:

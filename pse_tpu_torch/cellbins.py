@@ -4,8 +4,8 @@ PyTorch counterpart of ``pse_tpu/cellbins.py``.  Particles are binned into a
 fractional-space cell grid, each cell padded to a fixed capacity, so that the
 near field and the far field run on dense, regular (C, cap) arrays.
 ``bin_columns`` bins into (x, y) columns sorted by z inside each column (the
-banded near field's layout); ``bin_particles`` bins into the far-field
-columns.
+banded near field's layout); ``bin_particles`` bins into 3-D cells (the
+blocked near field's) or the far-field columns.
 
 The JAX package sorts with a multi-key ``lax.sort``; here the same
 lexicographic order comes from chained stable ``torch.sort`` calls.  All
@@ -266,3 +266,23 @@ def roll_cells(arr: torch.Tensor, spec: BinSpec, offset) -> torch.Tensor:
     a = arr.reshape((ncx, ncy, ncz) + tuple(arr.shape[1:]))
     a = torch.roll(a, (-offset[0], -offset[1], -offset[2]), dims=(0, 1, 2))
     return a.reshape(arr.shape)
+
+
+def half_space_offsets(reach: int = 1):
+    """(0,0,0) plus the lexicographically positive half of the stencil.
+
+    Pair blocks for -o are transposes of those for +o, so only half are
+    built; the matvec applies each block in both directions."""
+    offs = [(0, 0, 0)]
+    rng = range(-reach, reach + 1)
+    for ox in rng:
+        for oy in rng:
+            for oz in rng:
+                if (ox, oy, oz) > (0, 0, 0):
+                    offs.append((ox, oy, oz))
+    return tuple(offs)
+
+
+def full_offsets(reach: int = 1):
+    rng = range(-reach, reach + 1)
+    return tuple((ox, oy, oz) for ox in rng for oy in rng for oz in rng)

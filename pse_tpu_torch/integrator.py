@@ -1,22 +1,24 @@
-"""The PSE Brownian-dynamics step and U = M F on the banded engine.
+"""The PSE Brownian-dynamics step and U = M F on the banded and blocked
+engines.
 
-PyTorch counterpart of ``pse_tpu/integrator.py`` for the slice the port
-covers: ``engine="banded"``, thermal or athermal, with or without external
-forces, one occupancy class.  One step:
+PyTorch counterpart of ``pse_tpu/integrator.py``: ``engine="banded"`` (one
+occupancy class) and ``engine="blocked"`` (the default), thermal or
+athermal, with or without external forces.  One step:
 
-  binnings (bin_columns for the near field, bin_particles for the far field;
-  both fills bin the forces) -> band windows + far-field factors
-  -> [forces: spread -> rfft -> Green] (+ Hermitian wave noise) -> irfft
-  -> far-field contract -> fused near-field build + first matvec (two
-  right-hand sides, the forces and the first Lanczos vector, when both
-  exist) -> Lanczos M_real^{1/2} psi -> Euler update with shear advection
-  -> wrap
+  binnings (the near field's: z-sorted columns for banded, 3-D cells for
+  blocked; the far field's columns; both fills bin the forces) -> per-step
+  near-field data (banded: band windows; blocked: the pair blocks) and the
+  far-field factors -> [forces: spread -> rfft -> Green] (+ Hermitian wave
+  noise) -> irfft -> contract -> the first near-field matvec (banded: fused
+  with the build of A, with two right-hand sides, the forces and the first
+  Lanczos vector, when both exist; blocked: M F is a matvec of its own)
+  -> Lanczos M_real^{1/2} psi -> Euler update with shear advection -> wrap
 
 ``mobility`` is the deterministic U = M F of the same pieces.  Randomness is
 keyed by (hash_seed(seed), step) on a ``torch.Generator`` of the step's
 device, so a rerun on one device is bitwise equal and a step's draws do not
-depend on history.  The other engines ("blocked", "gather") are not ported
-yet and raise ``NotImplementedError`` naming the ROADMAP item.
+depend on history.  The gather engine and halo slabs are not ported yet and
+raise ``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import warnings
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -33,6 +35,8 @@ from .box import Box, make_box, wrap
 from .cellbins import bin_columns, bin_particles, vec_from_cells
 from .params import PSEParams, gridk_arrays
 from .ops import banded_nearfield as bdn
+from .ops import blocked_farfield as bff
+from .ops import blocked_nearfield as bnf
 from .ops import column_farfield as cff
 from .ops import lanczos, noise
 from .ops.farfield import apply_green
@@ -42,14 +46,14 @@ from .ops.chebyshev import ChebPair, fit_pair_functions
 # one iteration early so the persisted warm-start m can decrease.
 M_SHRINK_PERIOD = 16
 
-OVF_NF = 1        # near-field column capacity
+OVF_NF = 1        # near-field cell or column capacity
 OVF_BAND = 2      # banded window width
 OVF_FF = 4        # far-field cell capacity
 OVF_LANCZOS = 8   # Lanczos m_max hit unconverged
 
 _NOT_PORTED = (
     "not ported to pse_tpu_torch yet (ROADMAP.md, Queue A: {what}); the "
-    "port runs the banded engine"
+    "port runs the banded and blocked engines"
 )
 
 
@@ -98,14 +102,19 @@ def state_from_arrays(d, device="cuda") -> State:
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """Static configuration of the step: always the banded engine (the JAX
-    package's ``engine`` field has one value here).  ``thermal`` runs the
-    Brownian branches, ``has_forces`` the deterministic M F path."""
+    """Static configuration of the step.  ``engine`` is "banded" (with
+    ``band_spec``) or "blocked" (with ``nf_spec``); ``colff_spec`` is the
+    z-column far field and ``ff_spec`` the stored-weight far field the step
+    takes where ``colff_spec`` is None.  ``thermal`` runs the Brownian
+    branches, ``has_forces`` the deterministic M F path."""
 
     params: PSEParams
-    cheb: ChebPair
-    band_spec: bdn.BandSpec
-    colff_spec: cff.ColFfSpec
+    engine: str = "blocked"
+    cheb: Optional[ChebPair] = None
+    band_spec: Optional[bdn.BandSpec] = None
+    nf_spec: Optional[bnf.NfSpec] = None
+    ff_spec: Optional[bff.FfSpec] = None
+    colff_spec: Optional[cff.ColFfSpec] = None
     m_max: int = 24
     seed: int = 0
     device: str = "cuda"
@@ -126,16 +135,6 @@ def _cheb_tol(block_dtype: str) -> float:
     return 3e-5 if block_dtype == "bfloat16" else 1e-6
 
 
-def _ff_blockable(params: PSEParams) -> bool:
-    """Whether every grid axis has a far-field block size (the JAX
-    package's make_ff_spec test; banded falls back to blocked without)."""
-    need = params.gauss_P // 2 + 1
-    return all(
-        any(ng % s == 0 for s in range(need, ng // 3 + 1))
-        for ng in (params.Nx, params.Ny, params.Nz)
-    )
-
-
 def make_config(
     params: PSEParams,
     n_particles: int,
@@ -153,19 +152,18 @@ def make_config(
     positions=None,
     device="cuda",
 ) -> StepConfig:
-    """Build a StepConfig with the JAX package's banded-engine shapes.
+    """Build a StepConfig with the JAX package's shapes and engine choice:
+    banded falls back to blocked where the geometry is too small to band,
+    and blocked to gather where the grid is too small to block.
 
     Raises NotImplementedError where the JAX package would run code the
-    port does not have: another engine, several halo slabs, and a geometry
-    too small to band (the JAX package then falls back to the blocked
-    engine).  ``max_neighbors`` and ``nbr_subdiv`` size the gather
-    engine and ``positions`` the occupancy classes; neither is ported, so
-    they are accepted and unused."""
+    port does not have: the gather engine and several halo slabs.
+    ``max_neighbors`` and ``nbr_subdiv`` size the gather engine and
+    ``positions`` the occupancy classes; neither is ported, so they are
+    accepted and unused."""
     del max_neighbors, nbr_subdiv, positions
-    if engine != "banded":
+    if engine not in ("banded", "blocked"):
         raise _not_ported(f"the {engine!r} engine")
-    if not thermal and not has_forces:
-        has_forces = True               # an athermal step is M·0
     if shard_slabs != 1:
         raise _not_ported("parallel/ halo slabs")
     if block_dtype is None:
@@ -178,44 +176,66 @@ def make_config(
             stacklevel=2,
         )
     max_tilt = params.max_strain if max_tilt is None else max_tilt
-    band_spec = bdn.make_band_spec(
-        n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
-        block_dtype=block_dtype,
-    )
-    colff_spec = cff.make_col_spec(params, n_particles, ff_weight_dtype,
-                                   device=device)
-    if band_spec is None or colff_spec is None or not _ff_blockable(params):
-        raise _not_ported("the blocked engine, which make_config falls back "
-                          "to when the geometry is too small to band")
+    ff_spec = bff.make_ff_spec(params, n_particles, ff_weight_dtype,
+                               device=device)
+    band_spec = nf_spec = None
+    if engine == "banded":
+        band_spec = bdn.make_band_spec(
+            n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
+            block_dtype=block_dtype,
+        )
+        if ff_spec is None or band_spec is None:
+            engine, band_spec = "blocked", None   # too small to band
+    if engine == "blocked":
+        if ff_spec is None:
+            raise _not_ported("the 'gather' engine, which make_config falls "
+                              "back to when the grid is too small to block")
+        nf_spec = bnf.make_nf_spec(
+            n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
+            block_dtype=block_dtype,
+        )
+    if not thermal and not has_forces:
+        has_forces = True               # an athermal step is M·0
     cheb = fit_pair_functions(
         params.xi, params.ewald_dr, params.ewald_cut, params.radius,
         tol=_cheb_tol(block_dtype),
     )
+    colff_spec = cff.make_col_spec(params, n_particles, ff_weight_dtype,
+                                   device=device)
     return StepConfig(
-        params=params, cheb=cheb, band_spec=band_spec, colff_spec=colff_spec,
+        params=params, engine=engine, cheb=cheb, band_spec=band_spec,
+        nf_spec=nf_spec, ff_spec=ff_spec, colff_spec=colff_spec,
         m_max=m_max, seed=seed, device=str(torch.device(device)),
         thermal=bool(thermal), has_forces=bool(has_forces),
     )
 
 
+def _grown(spec, factor: float, multiple: int = 8):
+    """``spec`` with its bins' cap grown by ``factor`` to a multiple."""
+    if spec is None:
+        return None
+    cap = int(-(-spec.bins.cap * factor // multiple)) * multiple
+    return spec._replace(bins=spec.bins._replace(cap=cap))
+
+
 def grow_config(config: StepConfig, factor: float = 1.4,
                 flags: int | None = None) -> StepConfig:
     """Enlarge the capacities the overflow mask ``flags`` names (None grows
-    all): m_max for OVF_LANCZOS, the far-field cap for OVF_FF, the band
-    window (or, at W = 256, the row tile) for OVF_BAND and the column cap
-    for OVF_NF."""
+    all): m_max for OVF_LANCZOS, the far-field caps for OVF_FF, the blocked
+    cell cap for OVF_NF, and on the banded engine the band window (or, at
+    W = 256, the row tile) for OVF_BAND and the column cap for OVF_NF."""
     if flags is None:
         flags = OVF_NF | OVF_BAND | OVF_FF | OVF_LANCZOS
     flags = int(flags)
     changes = {}
     if flags & OVF_LANCZOS and config.thermal:
         changes["m_max"] = min(max(config.m_max * 2, config.m_max + 8), 100)
+    if flags & OVF_NF and config.nf_spec is not None:
+        changes["nf_spec"] = _grown(config.nf_spec, factor)
     if flags & OVF_FF:
-        bins = config.colff_spec.bins
-        changes["colff_spec"] = config.colff_spec._replace(
-            bins=bins._replace(cap=int(-(-bins.cap * factor // 8)) * 8)
-        )
-    if flags & (OVF_NF | OVF_BAND):
+        changes["ff_spec"] = _grown(config.ff_spec, factor)
+        changes["colff_spec"] = _grown(config.colff_spec, factor)
+    if config.band_spec is not None and flags & (OVF_NF | OVF_BAND):
         bs = config.band_spec
         rows, window, cap = bs.rows, bs.window, bs.bins.cap
         if flags & OVF_BAND:
@@ -256,13 +276,24 @@ class BandedCtx(NamedTuple):
     """Per-step data of the banded engine."""
 
     nf_bins: object        # z-sorted column bins
-    ff_bins: object        # far-field column bins
+    ff_bins: object        # far-field bins
     j0: torch.Tensor       # (O, C, T) window starts (O = 9 on CPU, 5 on CUDA)
     n_valid: torch.Tensor  # (C,)
     zsh: torch.Tensor      # (O, C, T) window z image shifts
-    ff_factors: object     # cff.ColFactors
+    ff_factors: object     # cff.ColFactors, or the stored far-field weights
     tilt: float
     blocks: object = None  # (1, C, 2, S, 5W) after build_mv (None on CPU)
+    nf_f: object = None    # (3, C, cap) forces binned with the near field
+    ff_f: object = None    # (3, C_ff, cap_ff) ditto on the far-field grid
+
+
+class BlockedCtx(NamedTuple):
+    """Per-step data of the blocked engine."""
+
+    nf_bins: object        # 3-D cell bins
+    ff_bins: object        # far-field bins
+    blocks: torch.Tensor   # (noff, 6, C, cap, cap) pair blocks
+    ff_factors: object     # cff.ColFactors, or the stored far-field weights
     nf_f: object = None    # (3, C, cap) forces binned with the near field
     ff_f: object = None    # (3, C_ff, cap_ff) ditto on the far-field grid
 
@@ -271,30 +302,80 @@ def _ovf(flag: torch.Tensor, bit: int) -> torch.Tensor:
     return flag.to(torch.int32) * bit
 
 
+def _nf_bin_spec(config: StepConfig):
+    """The BinSpec of the near field's slot layout."""
+    return (config.band_spec if config.engine == "banded"
+            else config.nf_spec).bins
+
+
+def _ff_bin_spec(config: StepConfig):
+    """The BinSpec the far field bins the particles with."""
+    return (config.colff_spec or config.ff_spec).bins
+
+
+def _bin_both(config: StepConfig, pos, box: Box, binner, forces):
+    """The near-field binning (by ``binner``) and the far-field one, with
+    ``forces`` (N, 3), when given, binned by both fills (zero in pad
+    slots): (nf_bins, ff_bins, nf_f, ff_f)."""
+    nf_spec, ff_spec = _nf_bin_spec(config), _ff_bin_spec(config)
+    if forces is None:
+        nf_bins = binner(pos, box, nf_spec)
+        ff_bins = bin_particles(pos, box, ff_spec)
+        return nf_bins, ff_bins, None, None
+    nf_bins, nf_f = binner(pos, box, nf_spec, values=forces)
+    ff_bins, ff_f = bin_particles(pos, box, ff_spec, values=forces)
+    return nf_bins, ff_bins, nf_f, ff_f
+
+
+def _ff_shared(config: StepConfig, ff_bins, box: Box):
+    """Per-step far-field data shared by spread and contract: the z-column
+    factors, or the stored weights (None when the spec builds them per
+    use)."""
+    p = config.params
+    if config.colff_spec is not None:
+        return cff.build_col_factors(ff_bins, box, config.colff_spec, p)
+    if config.ff_spec.store_weights:
+        return bff.build_weights(ff_bins, box, config.ff_spec, p)
+    return None
+
+
 def prepare_banded(config: StepConfig, pos, box: Box, forces=None):
     """Binnings, band windows and far-field factors; returns (ctx, the
     overflow mask as a () int32 tensor).  ``forces`` (N, 3), when given,
     are binned by both fills into ctx.nf_f / ctx.ff_f (zero in pad slots)."""
     p = config.params
     bs = config.band_spec
-    nf_f = ff_f = None
-    if forces is None:
-        nf_bins = bin_columns(pos, box, bs.bins)
-        ff_bins = bin_particles(pos, box, config.colff_spec.bins)
-    else:
-        nf_bins, nf_f = bin_columns(pos, box, bs.bins, values=forces)
-        ff_bins, ff_f = bin_particles(pos, box, config.colff_spec.bins,
-                                      values=forces)
+    nf_bins, ff_bins, nf_f, ff_f = _bin_both(config, pos, box, bin_columns,
+                                             forces)
     # the CUDA kernels read the stored half stencil's windows only; the
     # plain matvec (CPU) gathers all 9 offsets
     offs = bs.offsets if pos.device.type == "cpu" else bs.offsets[:bdn.N_HALF]
     j0, n_valid, band_overflow, zsh = bdn.compute_windows(
         nf_bins, bs, box, p.ewald_cut, offsets=offs)
-    factors = cff.build_col_factors(ff_bins, box, config.colff_spec, p)
+    factors = _ff_shared(config, ff_bins, box)
     overflow = (_ovf(nf_bins.overflow, OVF_NF) | _ovf(ff_bins.overflow, OVF_FF)
                 | _ovf(band_overflow, OVF_BAND))
     return BandedCtx(nf_bins, ff_bins, j0, n_valid, zsh, factors,
                      box.tilt_xy, nf_f=nf_f, ff_f=ff_f), overflow
+
+
+def prepare_blocked(config: StepConfig, pos, box: Box, forces=None):
+    """Both binnings (3-D cells for the near field), the pair blocks and
+    the far-field factors; returns (ctx, the overflow mask)."""
+    p = config.params
+    nf_bins, ff_bins, nf_f, ff_f = _bin_both(config, pos, box, bin_particles,
+                                             forces)
+    blocks = bnf.build_pair_blocks(nf_bins, box, config.nf_spec, config.cheb,
+                                   p.ewald_cut, p.ewald_dr)
+    factors = _ff_shared(config, ff_bins, box)
+    overflow = _ovf(nf_bins.overflow, OVF_NF) | _ovf(ff_bins.overflow, OVF_FF)
+    return BlockedCtx(nf_bins, ff_bins, blocks, factors, nf_f, ff_f), overflow
+
+
+def prepare(config: StepConfig, pos, box: Box, forces=None):
+    """The engine's per-step data: (ctx, the overflow mask)."""
+    fn = prepare_banded if config.engine == "banded" else prepare_blocked
+    return fn(config, pos, box, forces)
 
 
 def _band_args(config: StepConfig, ctx: BandedCtx):
@@ -303,45 +384,56 @@ def _band_args(config: StepConfig, ctx: BandedCtx):
             p.ewald_cut, p.ewald_dr, ctx.j0, ctx.n_valid, ctx.zsh)
 
 
-def build_mv(config: StepConfig, ctx: BandedCtx, ft):
-    """Fused build of A + the first near-field matvec: (ctx with blocks,
-    M_real ft) for ft (3, C, S) or two right-hand sides (6, C, S)."""
+def build_mv(config: StepConfig, ctx, ft):
+    """The step's first near-field matvec, (ctx, M_real ft).  Banded: the
+    fused build of A + matvec, for ft (3, C, S) or two right-hand sides
+    (6, C, S); blocked: a plain ``mreal_t`` on the blocks prepare built."""
+    if config.engine == "blocked":
+        return ctx, mreal_t(config, ctx, ft)
     blocks, u = bdn.build_mv_banded(*_band_args(config, ctx), ft,
                                     config.params.self_mobility)
     return ctx._replace(blocks=blocks), u
 
 
-def mreal_t(config: StepConfig, ctx: BandedCtx, cells):
-    """M_real cells (3, C, S) from the step's stored A."""
-    return bdn.matvec_banded(ctx.blocks, *_band_args(config, ctx), cells,
-                             config.params.self_mobility)
+def mreal_t(config: StepConfig, ctx, cells):
+    """M_real cells (3, C, cap) from the step's stored near-field data."""
+    mob = config.params.self_mobility
+    if config.engine == "blocked":
+        return bnf.matvec_cells(ctx.blocks, config.nf_spec, ctx.nf_bins,
+                                cells, mob)
+    return bdn.matvec_banded(ctx.blocks, *_band_args(config, ctx), cells, mob)
 
 
-def _far_field(config: StepConfig, ctx: BandedCtx, box: Box, noise_args):
+def _far_field(config: StepConfig, ctx, box: Box, noise_args):
     """Wave-space velocities (N, 3): [spread the binned forces ctx.ff_f ->
     rfft -> Green] (+ Hermitian noise when ``noise_args`` = (T, dt,
-    generator, uniforms)) -> irfft -> contract."""
+    generator, uniforms)) -> irfft -> contract.  The z-column far field
+    where config.colff_spec is set, else the stored-weight one."""
     p = config.params
-    kvec, W = gridk_arrays(p, box.tilt_xy, ctx.j0.device, half=True)
+    col, blk = config.colff_spec, config.ff_spec
+    kvec, W = gridk_arrays(p, box.tilt_xy, ctx.ff_bins.px.device, half=True)
     ghat = None
     if ctx.ff_f is not None:
-        grid = cff.spread_col_kernel(ctx.ff_f, config.colff_spec, p,
-                                     ctx.ff_factors)
+        grid = (cff.spread_col_kernel(ctx.ff_f, col, p, ctx.ff_factors)
+                if col is not None else bff.spread_blocked(
+                    ctx.ff_bins, ctx.ff_f, box, blk, p, ctx.ff_factors))
         ghat = apply_green(torch.fft.rfftn(grid, dim=(1, 2, 3)), kvec, W)
     if noise_args is not None:
         T, dt, generator, uniforms = noise_args
         nh = noise.wave_space_noise_hat_half(p, kvec, W, T, dt, generator,
                                              uniforms)
         ghat = nh if ghat is None else ghat + nh
-    grid_v = torch.fft.irfftn(ghat, s=(p.Nx, p.Ny, p.Nz), dim=(1, 2, 3))
-    u_cells = cff.contract_col_kernel(grid_v.to(torch.float32),
-                                      config.colff_spec, p, ctx.ff_factors)
-    return vec_from_cells(ctx.ff_bins, config.colff_spec.bins, u_cells)
+    grid_v = torch.fft.irfftn(ghat, s=(p.Nx, p.Ny, p.Nz),
+                              dim=(1, 2, 3)).to(torch.float32)
+    u_cells = (cff.contract_col_kernel(grid_v, col, p, ctx.ff_factors)
+               if col is not None else bff.contract_blocked(
+                   ctx.ff_bins, grid_v, box, blk, p, ctx.ff_factors))
+    return vec_from_cells(ctx.ff_bins, _ff_bin_spec(config), u_cells)
 
 
-def _nf_back(config: StepConfig, ctx: BandedCtx, cells):
-    """(3, C, S) near-field slots -> (N, 3)."""
-    return vec_from_cells(ctx.nf_bins, config.band_spec.bins, cells)
+def _nf_back(config: StepConfig, ctx, cells):
+    """(3, C, cap) near-field slots -> (N, 3)."""
+    return vec_from_cells(ctx.nf_bins, _nf_bin_spec(config), cells)
 
 
 def _velocity_scale(T, dt) -> float:
@@ -356,12 +448,13 @@ def _as_f32(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(x, np.float32)).to(device)
 
 
-def _psi(config: StepConfig, ctx: BandedCtx, generator, uniforms):
-    spec = config.band_spec.bins
-    C = spec.n_cells[0] * spec.n_cells[1]
-    u = noise.particle_noise_t((C, spec.cap), ctx.j0.device, generator,
-                               uniforms)
-    return u * ctx.nf_bins.mask.reshape(1, C, spec.cap)
+def _psi(config: StepConfig, ctx, generator, uniforms):
+    """psi (3, C, cap) in the near field's slots, zero in pad slots."""
+    spec = _nf_bin_spec(config)
+    mask = ctx.nf_bins.mask
+    u = noise.particle_noise_t((spec.n_cells_total, spec.cap), mask.device,
+                               generator, uniforms)
+    return u * mask
 
 
 def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
@@ -389,7 +482,7 @@ def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
         f = (torch.zeros_like(pos) if forces is None
              else _as_f32(forces, pos.device))
 
-    ctx, overflow = prepare_banded(config, pos, box, f)
+    ctx, overflow = prepare(config, pos, box, f)
     u = _far_field(config, ctx, box,
                    (T, dt, gen, u_wave) if config.thermal else None)
 
@@ -397,7 +490,7 @@ def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
     if config.thermal:
         psi = _psi(config, ctx, gen, u_psi)
         vnorm = torch.sqrt(torch.sum(psi * psi))
-        if config.has_forces:
+        if config.has_forces and config.engine == "banded":
             # M F rides the build as a second right-hand side: one pass
             # over A covers the build, M F and the first Lanczos matvec
             ctx, u0 = build_mv(config, ctx, torch.cat([ctx.nf_f, psi / vnorm]))
@@ -405,6 +498,9 @@ def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
             w0 = u0[3:6]
         else:
             ctx, w0 = build_mv(config, ctx, psi / vnorm)
+            if config.has_forces:
+                # blocked: M F is a matvec of its own on the binned forces
+                u = u + _nf_back(config, ctx, mreal_t(config, ctx, ctx.nf_f))
         probe = int(state.step % M_SHRINK_PERIOD == 0)
         u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
             lambda vt: mreal_t(config, ctx, vt), psi, p.error,
@@ -440,7 +536,7 @@ def brownian_displacement(config: StepConfig, pos, tilt_xy, step: int,
     pos = _as_f32(pos, config.device)
     box = _box_of(config, tilt_xy)
     gen = step_generator(config, step)
-    ctx, overflow = prepare_banded(config, pos, box)
+    ctx, overflow = prepare(config, pos, box)
     u_wave = _far_field(config, ctx, box, (T, dt, gen, None))
     psi = _psi(config, ctx, gen, None)
     vnorm = torch.sqrt(torch.sum(psi * psi))
@@ -464,7 +560,7 @@ def mobility(config: StepConfig, pos, forces, tilt_xy=0.0):
     pos = _as_f32(pos, config.device)
     forces = _as_f32(forces, config.device)
     box = _box_of(config, tilt_xy)
-    ctx, overflow = prepare_banded(config, pos, box, forces)
+    ctx, overflow = prepare(config, pos, box, forces)
     ctx, u0 = build_mv(config, ctx, ctx.nf_f)
     u_real = _nf_back(config, ctx, u0)
     return u_real + _far_field(config, ctx, box, None), overflow

@@ -182,7 +182,7 @@ def _pair_coefficients(dx, dy, dz, mi, mj, *, cheb, cut2, dr2, same_slot):
             d2_safe)
 
 
-def _pair_components(xi, yi, zi, mi, xj, yj, zj, mj, tilt, *, L, cheb,
+def pair_components(xi, yi, zi, mi, xj, yj, zj, mj, tilt, *, L, cheb,
                      cut2, dr2, same_slot):
     """The six symmetric RPY-Ewald tensor components of every (row, lane)
     pair, with the minimum image of the tilted box (plain version)."""
@@ -249,7 +249,7 @@ def matvec_banded_reference(bins: CellBins, tilt_xy, spec: BandSpec,
         def tile(k):
             return own[k][:, t0:t0 + tc, :, None]            # (C, tc, R, 1)
 
-        comps = _pair_components(
+        comps = pair_components(
             tile(0), tile(1), tile(2), tile(3),
             win[0][:, :, None, :], win[1][:, :, None, :],
             win[2][:, :, None, :], mj[:, :, None, :], tilt,

@@ -543,3 +543,69 @@ def test_with_forces_step_and_mobility_on_card_match_cpu(cuda, thermal):
     uc, _ = pi.mobility(cpu, pos, forces, 0.3)
     ug, og = pi.mobility(gpu, pos, forces, 0.3)
     assert int(og) == 0 and _rel_max(ug.cpu(), uc) < 1e-4
+
+
+@pytest.mark.parametrize("with_values", [False, True])
+@pytest.mark.parametrize("tilt", [0.0, 0.3])
+def test_fill_kernel_at_3d_cells_is_bitwise_the_plain_version(
+        cuda, tilt, with_values):
+    """The fill on the blocked near field's 3-D cell grid (and its
+    overfull case): every output bitwise its plain version's."""
+    params = make_params(xi=0.5, error=1e-3, L=40.0)
+    cfg = pi.make_config(params, 5300, device="cuda")
+    spec = cfg.nf_spec.bins
+    assert cfg.engine == "blocked" and min(spec.n_cells) >= 3
+    _, pos, box = _setup(5300, 40.0, tilt)
+    vals = torch.randn(pos.shape, device=cuda) if with_values else None
+    for overfull in (False, True):
+        if overfull:
+            pos[:700] = 0.5                    # one overfull cell
+        got = _assert_fill_bitwise(*fill_operands(pos, box, spec, False),
+                                   spec.n_cells_total, spec.cap, vals)
+        assert bool(got.overflow) == overfull
+
+
+@pytest.mark.parametrize("thermal,has_forces", [(True, False), (True, True),
+                                                (False, True)])
+def test_blocked_step_and_mobility_on_card_match_cpu(cuda, thermal,
+                                                     has_forces):
+    """The blocked engine's step (and U = M F), float32 blocks and factors,
+    card vs CPU, through the fill, contract and spread kernels and no
+    banded kernel."""
+    from pse_tpu_torch.ops.column_farfield import (contract_col_kernel,
+                                                   spread_moments_kernel)
+
+    n, L = 1080, 24.0
+    params = make_params(xi=0.5, error=1e-3, L=L)
+    kw = dict(thermal=thermal, has_forces=has_forces, block_dtype="float32")
+    gpu = pi.make_config(params, n, ff_weight_dtype="float32", device="cuda",
+                         **kw)
+    cpu = pi.make_config(params, n, device="cpu", **kw)
+    assert gpu.engine == cpu.engine == "blocked"
+    rng = np.random.default_rng(6)
+    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
+    forces = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    bs, p = cpu.nf_spec.bins, params
+    draws = (rng.uniform(-1.7, 1.7, (3, bs.n_cells_total, bs.cap)
+                         ).astype(np.float32),
+             rng.uniform(-1.2, 1.2, (6, p.Nx, p.Ny, p.Nz // 2 + 1)
+                         ).astype(np.float32)) if thermal else None
+    wrappers = (fill_cells, contract_col_kernel, spread_moments_kernel,
+                bdn.build_mv_banded, bdn.matvec_banded)
+    for w in wrappers:
+        w.launches = 0
+    T = 1.0 if thermal else 0.0
+    _, ic = pi.step(cpu, pi.make_state(pos, 2, 0.3, "cpu"),
+                    forces if has_forces else None, T, 1e-3, 0.4,
+                    uniforms=draws)
+    _, ig = pi.step(gpu, pi.make_state(pos, 2, 0.3, "cuda"),
+                    forces.cuda() if has_forces else None, T, 1e-3, 0.4,
+                    uniforms=draws)
+    assert ig["m_lanczos"] == ic["m_lanczos"]
+    assert _rel_max(ig["velocities"].cpu(), ic["velocities"]) < 1e-4
+    launches = [w.launches for w in wrappers]
+    assert launches[0] == 2 and launches[1] == 1
+    assert launches[2] == int(has_forces) and launches[3:] == [0, 0]
+    uc, _ = pi.mobility(cpu, pos, forces, 0.3)
+    ug, og = pi.mobility(gpu, pos, forces, 0.3)
+    assert int(og) == 0 and _rel_max(ug.cpu(), uc) < 1e-4

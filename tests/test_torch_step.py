@@ -188,20 +188,27 @@ def test_simulation_runs_sheared_and_resumes_a_pse_tpu_checkpoint(tmp_path):
 
 
 def test_unported_paths_raise_not_implemented():
+    """The gather engine and halo slabs still raise, naming ROADMAP; the
+    blocked engine, the banded -> blocked fallback of a box too sparse to
+    band and PSEv1.group now run, choosing what pse_tpu chooses."""
     tp = P.make_params(xi=0.5, error=1e-3, L=L)
-    for engine in ("blocked", "gather"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            pi.make_config(tp, N, engine=engine, has_forces=False,
-                           device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pi.make_config(tp, N, engine="gather", has_forces=False,
+                       device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):   # halo slabs
         pi.make_config(tp, N, engine="banded", shard_slabs=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="blocked engine"):
-        pi.make_config(tp, 64, engine="banded", has_forces=False,
-                       device="cpu")                             # too sparse
+    jp = J.make_params(xi=0.5, error=1e-3, L=L)
+    for n, engine in ((N, "blocked"), (64, "banded")):          # 64: sparse
+        cfg = pi.make_config(tp, n, engine=engine, has_forces=False,
+                             device="cpu")
+        jcfg = ji.make_config(jp, n, engine=engine, has_forces=False)
+        assert cfg.engine == jcfg.engine == "blocked"
+        assert cfg.nf_spec == jcfg.nf_spec and cfg.band_spec is None
     sim = P.Simulation(positions=_positions(1), L=L, dt=1e-3, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sim.set_integrator(P.PSEv1(T=1.0, group=np.arange(10)),
-                           engine="banded", verbose=False)
+    sim.set_integrator(P.PSEv1(T=1.0, group=np.arange(10)),
+                       engine="banded", verbose=False)
+    assert sim.config.engine == "blocked"         # 10 particles do not band
+    assert sim.config.nf_spec == ji.make_config(jp, 10).nf_spec
 
 
 def test_entry_points_default_to_cuda():
