@@ -22,6 +22,15 @@ Phases (each failure makes the script exit non-zero without the result line):
             (the stored-weight far field) <= 5e-3;
   [blocked-oracle]  mobility() with engine="blocked" at oracle_gate.npz
             against u_ref: relative 2-norm <= 5e-3;
+  [gather-small]  the gather engine on the card against the CPU, float32,
+            on the fallback box (L=10 at phi=0.45, N=107, through
+            Simulation's default engine: all-pairs), the oracle gate's box
+            with engine="gather" (a 3x5x5 cell list) and the same box with
+            nlist_type="stencil", tilts 0 and 0.3: the neighbor idx equal,
+            the brownian, with-forces and athermal steps and mobility()
+            <= 1e-4 at equal m, step and tap-spread reruns bitwise;
+  [gather-oracle]  mobility() with engine="gather" at oracle_gate.npz
+            against u_ref: relative 2-norm <= 5e-3;
   [main]    the brownian main path: Simulation(N=100k, phi=0.45) with
             PSEv1(T=1, seed=1, xi=0.5, error=1e-3) on engine="banded", a
             warm-up, then 20 timed steps with every kernel's launch count set
@@ -41,11 +50,15 @@ Phases (each failure makes the script exit non-zero without the result line):
             launches (the fill, the contract and, with forces, the spread
             > 0; the banded kernels 0);
   [blocked-mobility]  Simulation.mobility_matvec at the blocked state;
+  [gather], [gather-forces]  the same Simulation with engine="gather", a
+            warm-up and 10 timed steps: ms/step, particle-steps/s, the m
+            histogram, the peak device memory and the kernel launches (the
+            fill of the neighbor list's cell binning > 0, the others 0);
   [sedimentation]  the twin of examples/sedimentation.py on the card (N=10k,
             L=64, athermal, mobility_matvec and 20 steps);
-  [profile] torch.profiler over 3 more steps of each main path and of the
-            blocked path with forces: device time by kernel, kernel
-            launches per step and the device's idle share;
+  [profile] torch.profiler over 3 more steps of each main path, of the
+            blocked path with forces and of both gather paths: device time
+            by kernel, kernel launches per step and the device's idle share;
   [kernels] each kernel against its plain version at the main path's shapes
             (and the spread and the contract at the oracle's), at tilt 0 and
             0.3: the fill bitwise on every output (slots, value rows, ranks,
@@ -79,7 +92,10 @@ Phases (each failure makes the script exit non-zero without the result line):
             it; the fill at the blocked near field's shape (wrapper, kernel
             alone, bound), build_pair_blocks and one matvec_cells (CUDA
             events, with the bytes each must move and their kernel
-            launches per call by torch.profiler);
+            launches per call by torch.profiler); the gather step's parts
+            (the neighbor build, the pair coefficients, one matvec, the
+            taps, the tap spread and contract) by CUDA events beside the
+            bytes each must move;
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -103,6 +119,7 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, per type
 N, PHI, XI, ERROR, SEED, DT = 100_000, 0.45, 0.5, 1e-3, 1, 1e-3
 WARM_STEPS, TIMED_STEPS = 5, 20
 BLOCKED_WARM, BLOCKED_TIMED = 3, 10
+GATHER_WARM, GATHER_TIMED = 3, 10
 ORACLE = os.path.join(HERE, "tests", "data", "oracle_gate.npz")
 
 
@@ -401,16 +418,230 @@ def phase_blocked_oracle(ph):
         ph.failed.append("blocked oracle mobility overflowed or not finite")
 
 
-def _step_wrappers(forces: bool, blocked: bool = False):
+def phase_gather_small(ph):
+    """The gather engine on the card vs on the CPU, float32 throughout, on
+    three boxes: the fallback box (L = 10 at phi = 0.45, Simulation's
+    default engine, all-pairs), the oracle gate's box with
+    engine="gather" (a 3 x 5 x 5 cell list) and the same box with
+    nlist_type="stencil"; tilts 0 and 0.3."""
+    import dataclasses
+
+    import torch
+
+    import pse_tpu_torch as pse
+    from pse_tpu_torch import integrator, make_params
+    from pse_tpu_torch import neighbors as nb
+    from pse_tpu_torch.box import make_box
+    from pse_tpu_torch.ops import farfield as ff
+
+    print("[gather-small] the gather engine on the card vs the CPU plain "
+          "path (float32)")
+    d = np.load(ORACLE)
+    rng = np.random.default_rng(15)
+    L_f = 10.0
+    n_f = int(round(PHI * L_f ** 3 / (4.0 / 3.0 * math.pi)))
+    pos_f = rng.uniform(-L_f / 2, L_f / 2, (n_f, 3)).astype(np.float32)
+    method = dict(T=1.0, seed=3, xi=XI, error=ERROR)
+    sim = pse.Simulation(positions=pos_f, L=L_f, dt=DT, device="cuda")
+    sim.set_integrator(pse.PSEv1(**method), verbose=False)
+    cases = [("fallback box, default engine", sim.config, pos_f)]
+    params = make_params(xi=XI, error=ERROR, L=float(d["L"]))
+    cases.append(("oracle box, engine=gather", integrator.make_config(
+        params, int(d["n"]), seed=3, engine="gather", device="cuda"),
+        d["pos"]))
+    sim = pse.Simulation(positions=d["pos"], L=float(d["L"]), dt=DT,
+                         device="cuda")
+    sim.set_integrator(pse.PSEv1(nlist_type="stencil", **method),
+                       engine="gather", verbose=False)
+    cases.append(("oracle box, stencil", sim.config, d["pos"]))
+    for label, base, pos in cases:
+        if base.engine != "gather":
+            ph.failed.append(f"gather-small {label}: engine {base.engine}")
+            continue
+        n, p, spec = pos.shape[0], base.params, base.nbr_spec
+        print(f"  {label}: N={n} L={p.L[0]:.4f} cells {spec.n_cells} "
+              f"subdiv {spec.subdiv} cap {spec.cell_capacity} "
+              f"max_neighbors {spec.max_neighbors}")
+        pos_g = torch.as_tensor(pos, device="cuda")
+        f_c = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+        f_g = f_c.cuda()
+        draws = (rng.uniform(-math.sqrt(3), math.sqrt(3), (3, n)
+                             ).astype(np.float32),
+                 rng.uniform(-math.sqrt(1.5), math.sqrt(1.5),
+                             (6, p.Nx, p.Ny, p.Nz // 2 + 1)
+                             ).astype(np.float32))
+        for tilt in (0.0, 0.3):
+            box = make_box(p.L, tilt)
+            lg = nb.build_neighbor_list(pos_g, box, spec)
+            lc = nb.build_neighbor_list(torch.as_tensor(pos), box, spec)
+            ph.check(f"{label} tilt={tilt} neighbor idx (mismatched "
+                     "elements)", _mismatches(lg.idx.cpu(), lc.idx), 0)
+            if bool(lg.overflow) or bool(lc.overflow):
+                ph.failed.append(f"{label} tilt={tilt}: neighbor overflow")
+            taps = ff.compute_taps(pos_g, box, p)
+            _check_rerun(ph, f"{label} tilt={tilt} tap spread",
+                         ff.spread(taps, f_g, p),
+                         lambda: ff.spread(taps, f_g, p))
+            for thermal, has_forces in ((True, False), (True, True),
+                                        (False, True)):
+                gpu = dataclasses.replace(base, thermal=thermal,
+                                          has_forces=has_forces)
+                cpu = dataclasses.replace(gpu, device="cpu")
+                kind = ("athermal" if not thermal else
+                        "thermal+forces" if has_forces else "brownian")
+
+                def run(cfg, dev, f):
+                    return integrator.step(
+                        cfg, integrator.make_state(pos, 3, tilt, dev),
+                        f if has_forces else None, 1.0 if thermal else 0.0,
+                        DT, 0.5 * tilt, None,
+                        uniforms=draws if thermal else None)
+                s_c, i_c = run(cpu, "cpu", f_c)
+                s_g, i_g = run(gpu, "cuda", f_g)
+                r, _ = rel_max(i_g["velocities"].cpu(), i_c["velocities"])
+                ph.check(f"{label} {kind} step tilt={tilt} "
+                         f"m={i_g['m_lanczos']}/{i_c['m_lanczos']}", r, 1e-4)
+                if i_g["m_lanczos"] != i_c["m_lanczos"]:
+                    ph.failed.append(f"{label} {kind} tilt={tilt}: m differs")
+                if int(s_g.nbr_overflow) or not torch.isfinite(s_g.pos).all():
+                    ph.failed.append(f"{label} {kind} tilt={tilt} overflow")
+                _check_rerun(ph, f"{label} {kind} step tilt={tilt}",
+                             i_g["velocities"],
+                             lambda: run(gpu, "cuda", f_g)[1]["velocities"])
+                if thermal:
+                    continue
+                u_c, _ = integrator.mobility(cpu, pos, f_c, tilt)
+                u_g, o_g = integrator.mobility(gpu, pos, f_g, tilt)
+                ph.check(f"{label} mobility tilt={tilt}",
+                         rel_max(u_g.cpu(), u_c)[0], 1e-4)
+                if int(o_g):
+                    ph.failed.append(f"{label} mobility tilt={tilt} overflow")
+
+
+def phase_gather_oracle(ph):
+    """mobility() with engine="gather" against the float64 oracle."""
+    from pse_tpu_torch import integrator, make_params
+
+    d = np.load(ORACLE)
+    n = int(d["n"])
+    params = make_params(xi=float(d["xi"]), error=ERROR, L=float(d["L"]))
+    cfg = integrator.make_config(params, n, thermal=False, engine="gather",
+                                 device="cuda")
+    print(f"[gather-oracle] gather mobility() at oracle_gate.npz: N={n}, "
+          f"neighbor cells {cfg.nbr_spec.n_cells} cap "
+          f"{cfg.nbr_spec.cell_capacity} max_neighbors "
+          f"{cfg.nbr_spec.max_neighbors}, grid {params.Nx}^3 P = "
+          f"{params.gauss_P}")
+    u, ovf = integrator.mobility(cfg, d["pos"], d["forces"])
+    u = u.double().cpu().numpy()
+    rel = float(np.linalg.norm(u - d["u_ref"]) / np.linalg.norm(d["u_ref"]))
+    ph.check("gather mobility vs f64 oracle (relative 2-norm)", rel, 5e-3)
+    if int(ovf) or not np.isfinite(u).all():
+        ph.failed.append("gather oracle mobility overflowed or not finite")
+
+
+def phase_gather_timing(simg, results):
+    """The gather step's parts at N = 100k (tilt 0.3) by CUDA events, each
+    beside the bytes it must move (its inputs read once, its outputs
+    written once) over 3.35 TB/s."""
+    import torch
+
+    from pse_tpu_torch import neighbors as nb
+    from pse_tpu_torch.box import make_box
+    from pse_tpu_torch.cellbins import BinSpec, bin_particles
+    from pse_tpu_torch.ops import farfield as ff
+    from pse_tpu_torch.ops import nearfield as nf
+
+    config, p = simg.config, simg.config.params
+    spec = config.nbr_spec
+    pos = simg.state.pos
+    box = make_box(p.L, 0.3)
+    n, K = pos.shape[0], spec.max_neighbors
+    stencil = (2 * spec.subdiv + 1) ** 3
+    print(f"[timing] gather path: cells {spec.n_cells} cap "
+          f"{spec.cell_capacity}, {stencil * spec.cell_capacity} candidates "
+          f"per particle ({n * stencil * spec.cell_capacity / 1e6:.1f} M), "
+          f"max_neighbors {K} ({n * K / 1e6:.2f} M pair slots)")
+    nlist = nb.build_neighbor_list(pos, box, spec)
+    counts = (nlist.idx < n).sum(dim=1)
+    coeffs = nf.precompute_pair_coeffs(pos, nlist.idx, box, p.ewald_table,
+                                       p.ewald_cut, p.ewald_dr, p.ewald_n)
+    taps = ff.compute_taps(pos, box, p)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    ft = torch.randn((3, n), generator=g, device="cuda")
+    grid = torch.randn((3, p.Nx, p.Ny, p.Nz), generator=g, device="cuda")
+    f = ft.t().contiguous()
+    P3, G = p.gauss_P ** 3, p.n_grid_total
+    width = taps.node_taps.shape[1]
+    item = coeffs.nbr.element_size()
+    # bytes each must move: inputs read once, outputs written once
+    parts = (
+        ("build_neighbor_list",
+         lambda: nb.build_neighbor_list(pos, box, spec), 12 * n + 4 * n * K),
+        ("precompute_pair_coeffs",
+         lambda: nf.precompute_pair_coeffs(pos, nlist.idx, box, p.ewald_table,
+                                           p.ewald_cut, p.ewald_dr,
+                                           p.ewald_n),
+         12 * n + 4 * n * K + 16 * (p.ewald_n + 1) + (5 * 4 + item) * n * K),
+        ("mreal_matvec_t",
+         lambda: nf.mreal_matvec_t(coeffs, ft, p.self_mobility),
+         (5 * 4 + item) * n * K + 2 * 12 * n),
+        ("compute_taps", lambda: ff.compute_taps(pos, box, p),
+         12 * n + (8 + 4) * P3 * n + 8 * G * width),
+        ("spread", lambda: ff.spread(taps, f, p),
+         12 * n + 4 * P3 * n + 8 * G * width + 12 * G),
+        ("contract", lambda: ff.contract(taps, grid, p),
+         12 * G + (8 + 4) * P3 * n + 12 * n),
+    )
+    out = {}
+    for name, fn, nbytes in parts:
+        ms = cuda_ms(fn, 3)
+        bound = 1e3 * nbytes / HBM_BYTES_PER_S
+        out[name] = {"ms": ms, "bytes": nbytes, "bound_ms": bound}
+        print(f"  {name}: {ms:.4f} ms (CUDA events), must move "
+              f"{nbytes / 1e9:.4f} GB: bound {bound:.4f} ms by bytes, "
+              f"{100 * bound / ms:.2f} % of it")
+    print(f"  neighbors per particle: max {int(counts.max())}, mean "
+          f"{float(counts.float().mean()):.2f} of {K}; taps per grid node: "
+          f"at most {width} (the spread table's width)")
+    # the neighbor build's parts: the cell binning (the fill kernel's
+    # path), the compaction (one row chunk at this run's mean count,
+    # scaled to N rows), and the rest (candidate gathers, distance filter)
+    per_row = stencil * spec.cell_capacity
+    r0, r1 = nb._row_chunks(n, per_row)[0]
+    keep = float(counts.float().mean()) / per_row
+    mask = torch.rand((r1 - r0, per_row), generator=g, device="cuda") < keep
+    cand = torch.randint(0, n, mask.shape, generator=g, device="cuda")
+    bspec = BinSpec(tuple(spec.n_cells), spec.cell_capacity)
+    split = {
+        "bin_particles": cuda_ms(lambda: bin_particles(pos, box, bspec), 5),
+        "compact_rows": cuda_ms(lambda: nb._compact_rows(cand, mask, n, K), 3)
+        * n / (r1 - r0)}
+    del mask, cand
+    split["candidates_and_filter"] = (out["build_neighbor_list"]["ms"]
+                                      - sum(split.values()))
+    out["build_neighbor_list"]["parts_ms"] = split
+    print("  the neighbor build's parts: " + ", ".join(
+        f"{k} {v:.4f} ms" for k, v in split.items())
+        + " (the last by difference)")
+    results["gather"] = out
+    torch.cuda.empty_cache()
+
+
+def _step_wrappers(forces: bool, engine: str = "banded"):
     """The kernel wrappers a main-path step launches (on the blocked
-    engine: the fills, the contract and, with forces, the spread)."""
+    engine: the fills, the contract and, with forces, the spread; on the
+    gather engine: the fill of the neighbor list's cell binning)."""
     from pse_tpu_torch.cellbins import fill_cells
     from pse_tpu_torch.ops.banded_nearfield import build_mv_banded, matvec_banded
     from pse_tpu_torch.ops.column_farfield import (contract_col_kernel,
                                                    spread_moments_kernel)
 
+    if engine == "gather":
+        return {"fill_cells": fill_cells}
     w = {"fill_cells": fill_cells, "contract_col": contract_col_kernel}
-    if not blocked:
+    if engine == "banded":
         w.update(build_mv_banded=build_mv_banded, matvec_banded=matvec_banded)
     if forces:
         w["spread_col"] = spread_moments_kernel
@@ -442,18 +673,21 @@ def _counted(ph, label, expected, fn):
     return out, launches
 
 
-def phase_main(ph, forces: bool, blocked: bool = False):
+def phase_main(ph, forces: bool, engine: str = "banded"):
     """A main path through the user entry points; returns the run data.
-    ``blocked``: set_integrator without an engine, i.e. the default,
-    blocked engine, with fewer steps (its near field is plain PyTorch)."""
+    ``engine``: "banded", "blocked" (set_integrator without an engine,
+    i.e. the default, blocked engine, asserted) or "gather", the last two
+    with fewer steps (their near fields are plain PyTorch)."""
     import torch
 
     import pse_tpu_torch as pse
 
     pos, L = make_positions(N, PHI, seed=0)
-    label = ("blocked" if blocked else "main") + ("-forces" if forces else "")
-    warm, timed = (BLOCKED_WARM, BLOCKED_TIMED) if blocked else (WARM_STEPS,
-                                                                 TIMED_STEPS)
+    label = ("main" if engine == "banded" else engine) + (
+        "-forces" if forces else "")
+    warm, timed = {"banded": (WARM_STEPS, TIMED_STEPS),
+                   "blocked": (BLOCKED_WARM, BLOCKED_TIMED),
+                   "gather": (GATHER_WARM, GATHER_TIMED)}[engine]
     force_fn = None
     if forces:
         # bench.py's with-forces workload: one fixed random force array
@@ -463,18 +697,19 @@ def phase_main(ph, forces: bool, blocked: bool = False):
         def force_fn(pos, t):
             return F
     print(f"[{label}] Simulation N={N} phi={PHI} L={L:.4f} xi={XI} "
-          f"error={ERROR} engine={'default' if blocked else 'banded'} "
+          f"error={ERROR} engine="
+          f"{'default' if engine == 'blocked' else engine} "
           f"force_fn={'fixed random' if forces else None}")
     sim = pse.Simulation(positions=pos, L=L, dt=DT, sync_every=10,
                          force_fn=force_fn, device="cuda")
     method = pse.integrate.PSEv1(T=1.0, seed=SEED, xi=XI, error=ERROR)
-    if blocked:
+    if engine == "blocked":
         sim.set_integrator(method, verbose=False)
-        if sim.config.engine != "blocked":
-            ph.failed.append(f"{label}: the default engine is "
-                             f"{sim.config.engine}, expected blocked")
     else:
-        sim.set_integrator(method, engine="banded", verbose=False)
+        sim.set_integrator(method, engine=engine, verbose=False)
+    if sim.config.engine != engine:
+        ph.failed.append(f"{label}: the engine is {sim.config.engine}, "
+                         f"expected {engine}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -485,7 +720,7 @@ def phase_main(ph, forces: bool, blocked: bool = False):
     retries0 = sim.metrics["overflow_retries"]
     hist0 = dict(sim.metrics["m_lanczos_hist"])
     t0 = time.perf_counter()
-    _, launches = _counted(ph, label, _step_wrappers(forces, blocked),
+    _, launches = _counted(ph, label, _step_wrappers(forces, engine),
                            lambda: sim.run(timed))
     wall = time.perf_counter() - t0
     hist = {m: c - hist0.get(m, 0)
@@ -504,10 +739,16 @@ def phase_main(ph, forces: bool, blocked: bool = False):
     if int(sim.state.nbr_overflow):
         ph.failed.append(f"{label} ended with an overflow")
     cfg = sim.config
-    if blocked:
-        for k in ("build_mv_banded", "matvec_banded", "build_banded_blocks"):
+    peak = (f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
+            " GB (torch.cuda.max_memory_allocated)")
+    if engine != "banded":
+        unused = ("build_mv_banded", "matvec_banded", "build_banded_blocks")
+        if engine == "gather":
+            unused += ("contract_col", "spread_col")
+        for k in unused:
             if launches[k]:
                 ph.failed.append(f"{k} launched on the {label} path")
+    if engine == "blocked":
         nf = cfg.nf_spec
         C, cap = nf.bins.n_cells_total, nf.bins.cap
         item = torch.empty((), dtype=getattr(torch, nf.block_dtype)
@@ -516,9 +757,13 @@ def phase_main(ph, forces: bool, blocked: bool = False):
               f"{len(nf.offsets)} offsets, pair blocks "
               f"{len(nf.offsets) * 6 * C * cap * cap * item / 1e9:.3f} GB "
               f"{nf.block_dtype}; far-field cap {cfg.colff_spec.bins.cap} "
-              f"{cfg.colff_spec.weight_dtype}; m_max {cfg.m_max}; peak device "
-              f"memory {torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
-              "(torch.cuda.max_memory_allocated)")
+              f"{cfg.colff_spec.weight_dtype}; m_max {cfg.m_max}; {peak}")
+    elif engine == "gather":
+        ns, p = cfg.nbr_spec, cfg.params
+        print(f"  final config: neighbor cells {ns.n_cells} cap "
+              f"{ns.cell_capacity} subdiv {ns.subdiv}, max_neighbors "
+              f"{ns.max_neighbors}; grid {p.Nx}x{p.Ny}x{p.Nz}, P = "
+              f"{p.gauss_P}; m_max {cfg.m_max}; {peak}")
     else:
         bs = cfg.band_spec
         print(f"  final config: band cap {bs.bins.cap} W {bs.window} R "
@@ -624,17 +869,20 @@ def phase_profile(sim, ms_step, label, steps=3):
                 rows.append((dev_us / steps / 1e3, ev.count / steps, ev.key))
     except RuntimeError as e:                 # tracing unavailable
         print(f"  profiler unavailable: {e}")
-        return
+        return None
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     copies = sum(r[1] for r in rows if r[2].startswith(("Memcpy", "Memset")))
+    launches = sum(r[1] for r in rows) - copies
     print(f"  device kernels {busy:.3f} ms/step of {ms_step:.3f} ms/step "
           f"unprofiled wall: busy {100 * busy / ms_step:.1f}%, idle "
           f"{100 * (1 - busy / ms_step):.1f}%; "
-          f"{sum(r[1] for r in rows) - copies:.1f} kernel launches per step "
+          f"{launches:.1f} kernel launches per step "
           f"(and {copies:.1f} copies and memsets)")
     for ms, count, key in rows[:16]:
         print(f"  {ms:8.4f} ms/step  x{count:<6.1f} {key[:88]}")
+    return {"device_ms": busy, "idle": 1 - busy / ms_step,
+            "launches": launches}
 
 
 def _band_operands(config, pos, tilt):
@@ -1201,6 +1449,8 @@ def main() -> int:
     phase_oracle(ph)
     phase_blocked_small(ph)
     phase_blocked_oracle(ph)
+    phase_gather_small(ph)
+    phase_gather_oracle(ph)
     sim, _, ms_b = phase_main(ph, forces=False)
     phase_profile(sim, ms_b, "brownian main-path")
     del sim
@@ -1209,17 +1459,23 @@ def main() -> int:
     phase_mobility(ph, simf)
     launches["build_banded_blocks"] = phase_blocks(
         ph, simf)["build_banded_blocks"]
-    sim, _, ms_bb = phase_main(ph, forces=False, blocked=True)
+    sim, _, ms_bb = phase_main(ph, forces=False, engine="blocked")
     del sim
-    simb, launches_b, ms_bf = phase_main(ph, forces=True, blocked=True)
+    simb, launches_b, ms_bf = phase_main(ph, forces=True, engine="blocked")
     phase_profile(simb, ms_bf, "with-forces blocked")
     phase_mobility(ph, simb, "blocked-mobility")
+    sim, _, ms_gb = phase_main(ph, forces=False, engine="gather")
+    prof_gb = phase_profile(sim, ms_gb, "brownian gather")
+    del sim
+    simg, launches_g, ms_gf = phase_main(ph, forces=True, engine="gather")
+    prof_gf = phase_profile(simg, ms_gf, "with-forces gather")
     phase_sedimentation(ph)
     results = {name: {"err": [], "library_ms": None}
                for name, _, _ in KERNELS}
     phase_kernels(ph, simf, results, simb)
     phase_timing(simf, results)
     phase_blocked_timing(simb, results)
+    phase_gather_timing(simg, results)
 
     line = []
     for name, src, replaces in KERNELS:
@@ -1232,6 +1488,7 @@ def main() -> int:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
             "launches_blocked": launches_b[name],
+            "launches_gather": launches_g[name],
             **{k: r[k] for k in ("kernel_ms", "kernel_ms_1rhs",
                                  "bound_full_A_ms", "bin_columns_ms",
                                  "bin_particles_ms", "blocked_ms",
@@ -1242,10 +1499,19 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
               f"launches {launches[name]}")
     print(f"blocked near field (not kernels): {json.dumps(results['blocked'])}")
+    print(f"gather engine (not kernels): {json.dumps(results['gather'])}")
+    for name, ms, prof in (("gather", ms_gb, prof_gb),
+                           ("gather-forces", ms_gf, prof_gf)):
+        print(f"{name}: {ms:.3f} ms/step, {1e3 * N / ms:.6g} particle-steps/s"
+              + ("" if prof is None else
+                 f", device {prof['device_ms']:.3f} ms/step, idle "
+                 f"{100 * prof['idle']:.1f} %, {prof['launches']:.1f} kernel "
+                 "launches per step"))
     print(f"total {time.perf_counter() - t_start:.1f} s; main paths "
           f"{ms_b:.3f} ms/step (brownian), {ms_f:.3f} ms/step (with forces); "
           f"blocked {ms_bb:.3f} ms/step (brownian), {ms_bf:.3f} ms/step "
-          "(with forces)")
+          f"(with forces); gather {ms_gb:.3f} ms/step (brownian), "
+          f"{ms_gf:.3f} ms/step (with forces)")
     if ph.failed:
         print("FAILED: " + "; ".join(map(str, ph.failed)))
         return 1

@@ -2,8 +2,10 @@
 Brownian dynamics) for one NVIDIA H100.
 
 It runs the step of the blocked engine (the default: 3-D cell pair blocks
-+ z-column far field) and of the banded engine (z-sorted column near
-field), thermal or athermal, with or without external forces
++ z-column far field), of the banded engine (z-sorted column near field)
+and of the gather engine (a neighbor list, the table-interpolated near
+field and a tap far field, where the box is too small to block), thermal
+or athermal, with or without external forces
 (``Simulation(force_fn=...)``), on all particles or a ``PSEv1.group``
 subset, and the deterministic U = M F (``integrator.mobility``,
 ``Simulation.mobility_matvec``), with hand-written CUDA kernels (``csrc/``,
@@ -24,6 +26,7 @@ or ``pse_tpu``.
 """
 
 from . import box
+from . import neighbors
 from . import params
 from . import tables
 from . import shear as shear_function

@@ -15,8 +15,10 @@ grows the named capacities and runs it again.  ``force_fn(pos, step)``
 returns the (N, 3) forces at the current positions as a tensor on the
 simulation's device (it is called every step, with no host sync);
 ``mobility_matvec`` is the deterministic U = M F.  The port runs the
-blocked engine (the default) and the banded one; the gather engine raises
-``NotImplementedError`` (see integrator.make_config).  A ``PSEv1.group``
+blocked engine (the default), the banded one and the gather (neighbor
+list) one, and ``make_config`` picks the JAX package's engine for the box
+(banded -> blocked -> gather where the geometry is too small).  A
+``PSEv1.group``
 integrates a subset: the hydrodynamic system is the group's members, and
 the other particles stay where they are (``force_fn`` still sees them).
 """
@@ -33,8 +35,8 @@ import torch
 from . import shear as shear_function
 from .box import Box, make_box
 from .integrator import (
-    OVF_BAND, OVF_FF, OVF_NF, State, StepConfig, grow_config, make_config,
-    make_state, mobility, state_from_arrays, step as _step,
+    OVF_BAND, OVF_FF, OVF_NBR, OVF_NF, State, StepConfig, grow_config,
+    make_config, make_state, mobility, state_from_arrays, step as _step,
 )
 from .params import make_params
 
@@ -42,10 +44,13 @@ from .params import make_params
 @dataclasses.dataclass
 class PSEv1:
     """Integration-method description (the reference's integrate.PSEv1
-    arguments, integrate.py:32).  ``nlist_type`` is checked as the JAX
-    package checks it; the banded and blocked engines bin directly and use
-    none.  ``group``: None for all particles, or an index array of the
-    subset to integrate (Stokes.cc:85-111)."""
+    arguments, integrate.py:32).  ``nlist_type``: "cell" is the rcut-sized
+    27-stencil cell list; "stencil" the finer-cell backend (rcut/2 cells,
+    125-stencil, the analogue of the reference's CellListStencil,
+    integrate.py:69-74), both used by the gather engine's neighbor
+    enumeration (the banded and blocked engines bin directly); "tree" maps
+    to "cell" with a warning.  ``group``: None for all particles, or an
+    index array of the subset to integrate (Stokes.cc:85-111)."""
 
     T: float | Callable = 1.0
     seed: int = 0
@@ -64,14 +69,14 @@ class PSEv1:
         if self.nlist_type.upper() == "TREE":
             import warnings
 
-            # The reference's tree backend (NeighborListGPUTree) builds a
-            # neighbour list; the banded and blocked engines build none
-            # (they bin the particles into cells each step), so the option
-            # is accepted for API parity and changes nothing.
+            # The reference's tree backend (NeighborListGPUTree) has no
+            # counterpart here: the gather engine enumerates neighbours
+            # from a cell list, and the banded and blocked engines bin the
+            # particles into cells each step.  Accepted for API parity.
             warnings.warn(
-                "nlist_type='tree' has no effect on the GPU banded engine "
-                "or the blocked one, which bin particles into cells and "
-                "build no neighbour list (results identical to 'cell')",
+                "nlist_type='tree' has no counterpart on the GPU banded "
+                "engine, the blocked one or the gather one; using the "
+                "cell-list backend (results identical to 'cell')",
                 stacklevel=2,
             )
 
@@ -166,7 +171,11 @@ class Simulation:
         self.config = make_config(
             params, n_hydro, thermal=thermal, seed=method.seed, engine=engine,
             max_tilt=method.max_strain, max_neighbors=max_neighbors,
-            has_forces=self.force_fn is not None, device=self.device,
+            has_forces=self.force_fn is not None,
+            # "stencil": rcut/2 cells with a 125-stencil; only the gather
+            # engine enumerates neighbours
+            nbr_subdiv=2 if method.nlist_type.upper() == "STENCIL" else 1,
+            device=self.device,
         )
         self._built_max_strain = float(method.max_strain)
         if verbose:
@@ -275,6 +284,9 @@ class Simulation:
                         "regrows; the configuration density is outside what "
                         f"the {self.config.engine} engine's layout can absorb"
                     )
+                # grows what the mask names: OVF_NBR the neighbor list,
+                # OVF_NF / OVF_BAND / OVF_FF the cell caps and the band,
+                # OVF_LANCZOS m_max
                 self.config = grow_config(self.config, flags=flags)
                 self.state = snapshot
                 self.metrics["overflow_retries"] += 1
@@ -319,7 +331,7 @@ class Simulation:
             specs = ((OVF_NF, "band_spec" if cfg.engine == "banded"
                       else "nf_spec"), (OVF_BAND, "band_spec window"),
                      (OVF_FF, "colff_spec" if cfg.colff_spec is not None
-                      else "ff_spec"))
+                      else "ff_spec"), (OVF_NBR, "nbr_spec"))
             raise RuntimeError(
                 "capacity overflow in mobility ("
                 + ", ".join(name for bit, name in specs if flags & bit)

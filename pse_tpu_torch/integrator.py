@@ -1,24 +1,27 @@
-"""The PSE Brownian-dynamics step and U = M F on the banded and blocked
-engines.
+"""The PSE Brownian-dynamics step and U = M F on the banded, blocked and
+gather engines.
 
 PyTorch counterpart of ``pse_tpu/integrator.py``: ``engine="banded"`` (one
-occupancy class) and ``engine="blocked"`` (the default), thermal or
-athermal, with or without external forces.  One step:
+occupancy class), ``engine="blocked"`` (the default) and
+``engine="gather"`` (the neighbor-list engine, make_config's last
+fallback), thermal or athermal, with or without external forces.  One
+step:
 
-  binnings (the near field's: z-sorted columns for banded, 3-D cells for
-  blocked; the far field's columns; both fills bin the forces) -> per-step
-  near-field data (banded: band windows; blocked: the pair blocks) and the
-  far-field factors -> [forces: spread -> rfft -> Green] (+ Hermitian wave
-  noise) -> irfft -> contract -> the first near-field matvec (banded: fused
-  with the build of A, with two right-hand sides, the forces and the first
-  Lanczos vector, when both exist; blocked: M F is a matvec of its own)
-  -> Lanczos M_real^{1/2} psi -> Euler update with shear advection -> wrap
+  per-step near- and far-field data (banded: the column binnings, band
+  windows and far-field factors; blocked: the 3-D cell binning, the pair
+  blocks and the factors; gather: the neighbor list, its pair coefficients
+  and the Gaussian taps) -> [forces: spread -> rfft -> Green] (+ Hermitian
+  wave noise) -> irfft -> contract -> the first near-field matvec (banded:
+  fused with the build of A, with two right-hand sides, the forces and the
+  first Lanczos vector, when both exist; blocked and gather: M F is a
+  matvec of its own) -> Lanczos M_real^{1/2} psi -> Euler update with
+  shear advection -> wrap
 
 ``mobility`` is the deterministic U = M F of the same pieces.  Randomness is
 keyed by (hash_seed(seed), step) on a ``torch.Generator`` of the step's
 device, so a rerun on one device is bitwise equal and a step's draws do not
-depend on history.  The gather engine and halo slabs are not ported yet and
-raise ``NotImplementedError`` naming the ROADMAP item.
+depend on history.  Halo slabs are not ported yet and raise
+``NotImplementedError`` naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -33,12 +36,13 @@ import torch
 
 from .box import Box, make_box, wrap
 from .cellbins import bin_columns, bin_particles, vec_from_cells
+from .neighbors import NeighborSpec, build_neighbor_list, grow_spec, make_spec
 from .params import PSEParams, gridk_arrays
 from .ops import banded_nearfield as bdn
 from .ops import blocked_farfield as bff
 from .ops import blocked_nearfield as bnf
 from .ops import column_farfield as cff
-from .ops import lanczos, noise
+from .ops import farfield, lanczos, nearfield, noise
 from .ops.farfield import apply_green
 from .ops.chebyshev import ChebPair, fit_pair_functions
 
@@ -50,10 +54,13 @@ OVF_NF = 1        # near-field cell or column capacity
 OVF_BAND = 2      # banded window width
 OVF_FF = 4        # far-field cell capacity
 OVF_LANCZOS = 8   # Lanczos m_max hit unconverged
+OVF_NBR = 16      # gather-engine neighbor capacity
+
+ENGINES = ("banded", "blocked", "gather")
 
 _NOT_PORTED = (
     "not ported to pse_tpu_torch yet (ROADMAP.md, Queue A: {what}); the "
-    "port runs the banded and blocked engines"
+    "port runs on one device"
 )
 
 
@@ -103,12 +110,15 @@ def state_from_arrays(d, device="cuda") -> State:
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
     """Static configuration of the step.  ``engine`` is "banded" (with
-    ``band_spec``) or "blocked" (with ``nf_spec``); ``colff_spec`` is the
-    z-column far field and ``ff_spec`` the stored-weight far field the step
-    takes where ``colff_spec`` is None.  ``thermal`` runs the Brownian
-    branches, ``has_forces`` the deterministic M F path."""
+    ``band_spec``), "blocked" (with ``nf_spec``) or "gather" (with
+    ``nbr_spec`` only, which every config carries); ``colff_spec`` is the
+    z-column far field and ``ff_spec`` the stored-weight far field the
+    banded and blocked steps take where ``colff_spec`` is None.
+    ``thermal`` runs the Brownian branches, ``has_forces`` the
+    deterministic M F path."""
 
     params: PSEParams
+    nbr_spec: Optional[NeighborSpec] = None   # gather-engine neighbor shapes
     engine: str = "blocked"
     cheb: Optional[ChebPair] = None
     band_spec: Optional[bdn.BandSpec] = None
@@ -156,14 +166,14 @@ def make_config(
     banded falls back to blocked where the geometry is too small to band,
     and blocked to gather where the grid is too small to block.
 
-    Raises NotImplementedError where the JAX package would run code the
-    port does not have: the gather engine and several halo slabs.
-    ``max_neighbors`` and ``nbr_subdiv`` size the gather engine and
-    ``positions`` the occupancy classes; neither is ported, so they are
-    accepted and unused."""
-    del max_neighbors, nbr_subdiv, positions
-    if engine not in ("banded", "blocked"):
-        raise _not_ported(f"the {engine!r} engine")
+    ``max_neighbors`` and ``nbr_subdiv`` size the gather engine's neighbor
+    list (``nbr_spec``, built for every engine as in the JAX package).
+    Raises NotImplementedError for several halo slabs, which the port does
+    not have.  ``positions`` sizes the occupancy classes, which are not
+    ported: it is accepted and unused."""
+    del positions
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be one of {ENGINES}, not {engine!r}")
     if shard_slabs != 1:
         raise _not_ported("parallel/ halo slabs")
     if block_dtype is None:
@@ -176,9 +186,14 @@ def make_config(
             stacklevel=2,
         )
     max_tilt = params.max_strain if max_tilt is None else max_tilt
-    ff_spec = bff.make_ff_spec(params, n_particles, ff_weight_dtype,
-                               device=device)
-    band_spec = nf_spec = None
+    nbr_spec = make_spec(
+        n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
+        max_neighbors=max_neighbors, subdiv=nbr_subdiv,
+    )
+    ff_spec = band_spec = nf_spec = None
+    if engine in ("banded", "blocked"):
+        ff_spec = bff.make_ff_spec(params, n_particles, ff_weight_dtype,
+                                   device=device)
     if engine == "banded":
         band_spec = bdn.make_band_spec(
             n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
@@ -188,25 +203,29 @@ def make_config(
             engine, band_spec = "blocked", None   # too small to band
     if engine == "blocked":
         if ff_spec is None:
-            raise _not_ported("the 'gather' engine, which make_config falls "
-                              "back to when the grid is too small to block")
-        nf_spec = bnf.make_nf_spec(
-            n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
-            block_dtype=block_dtype,
-        )
+            engine = "gather"                     # too small to block
+        else:
+            nf_spec = bnf.make_nf_spec(
+                n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
+                block_dtype=block_dtype,
+            )
     if not thermal and not has_forces:
         has_forces = True               # an athermal step is M·0
-    cheb = fit_pair_functions(
-        params.xi, params.ewald_dr, params.ewald_cut, params.radius,
-        tol=_cheb_tol(block_dtype),
-    )
-    colff_spec = cff.make_col_spec(params, n_particles, ff_weight_dtype,
-                                   device=device)
+    cheb = colff_spec = None
+    if engine != "gather":
+        # the gather engine interpolates params.ewald_table instead
+        cheb = fit_pair_functions(
+            params.xi, params.ewald_dr, params.ewald_cut, params.radius,
+            tol=_cheb_tol(block_dtype),
+        )
+        colff_spec = cff.make_col_spec(params, n_particles, ff_weight_dtype,
+                                       device=device)
     return StepConfig(
-        params=params, engine=engine, cheb=cheb, band_spec=band_spec,
-        nf_spec=nf_spec, ff_spec=ff_spec, colff_spec=colff_spec,
-        m_max=m_max, seed=seed, device=str(torch.device(device)),
-        thermal=bool(thermal), has_forces=bool(has_forces),
+        params=params, nbr_spec=nbr_spec, engine=engine, cheb=cheb,
+        band_spec=band_spec, nf_spec=nf_spec, ff_spec=ff_spec,
+        colff_spec=colff_spec, m_max=m_max, seed=seed,
+        device=str(torch.device(device)), thermal=bool(thermal),
+        has_forces=bool(has_forces),
     )
 
 
@@ -221,13 +240,16 @@ def _grown(spec, factor: float, multiple: int = 8):
 def grow_config(config: StepConfig, factor: float = 1.4,
                 flags: int | None = None) -> StepConfig:
     """Enlarge the capacities the overflow mask ``flags`` names (None grows
-    all): m_max for OVF_LANCZOS, the far-field caps for OVF_FF, the blocked
-    cell cap for OVF_NF, and on the banded engine the band window (or, at
-    W = 256, the row tile) for OVF_BAND and the column cap for OVF_NF."""
+    all): the neighbor list for OVF_NBR, m_max for OVF_LANCZOS, the
+    far-field caps for OVF_FF, the blocked cell cap for OVF_NF, and on the
+    banded engine the band window (or, at W = 256, the row tile) for
+    OVF_BAND and the column cap for OVF_NF."""
     if flags is None:
-        flags = OVF_NF | OVF_BAND | OVF_FF | OVF_LANCZOS
+        flags = OVF_NF | OVF_BAND | OVF_FF | OVF_LANCZOS | OVF_NBR
     flags = int(flags)
     changes = {}
+    if flags & OVF_NBR and config.nbr_spec is not None:
+        changes["nbr_spec"] = grow_spec(config.nbr_spec, factor)
     if flags & OVF_LANCZOS and config.thermal:
         changes["m_max"] = min(max(config.m_max * 2, config.m_max + 8), 100)
     if flags & OVF_NF and config.nf_spec is not None:
@@ -296,6 +318,15 @@ class BlockedCtx(NamedTuple):
     ff_factors: object     # cff.ColFactors, or the stored far-field weights
     nf_f: object = None    # (3, C, cap) forces binned with the near field
     ff_f: object = None    # (3, C_ff, cap_ff) ditto on the far-field grid
+
+
+class GatherCtx(NamedTuple):
+    """Per-step data of the gather engine."""
+
+    coeffs: nearfield.PairCoeffs   # the neighbor pairs' coefficients
+    taps: farfield.SpreadTaps      # the Gaussian taps, shared far field
+    nf_f: object = None            # (3, N) forces (the engine's slots)
+    ff_f: object = None            # (N, 3) forces for the tap spread
 
 
 def _ovf(flag: torch.Tensor, bit: int) -> torch.Tensor:
@@ -372,9 +403,26 @@ def prepare_blocked(config: StepConfig, pos, box: Box, forces=None):
     return BlockedCtx(nf_bins, ff_bins, blocks, factors, nf_f, ff_f), overflow
 
 
+def prepare_gather(config: StepConfig, pos, box: Box, forces=None):
+    """The neighbor list, its pair coefficients and the Gaussian taps;
+    returns (ctx, the overflow mask).  The engine works in particle
+    layout: ``forces`` (N, 3) are kept as they are (ctx.ff_f) and
+    transposed (ctx.nf_f)."""
+    p = config.params
+    nlist = build_neighbor_list(pos, box, config.nbr_spec)
+    coeffs = nearfield.precompute_pair_coeffs(
+        pos, nlist.idx, box, p.ewald_table, p.ewald_cut, p.ewald_dr,
+        p.ewald_n)
+    taps = farfield.compute_taps(pos, box, p)
+    nf_f = None if forces is None else forces.t()
+    return (GatherCtx(coeffs, taps, nf_f, forces),
+            _ovf(nlist.overflow, OVF_NBR))
+
+
 def prepare(config: StepConfig, pos, box: Box, forces=None):
     """The engine's per-step data: (ctx, the overflow mask)."""
-    fn = prepare_banded if config.engine == "banded" else prepare_blocked
+    fn = {"banded": prepare_banded, "blocked": prepare_blocked,
+          "gather": prepare_gather}[config.engine]
     return fn(config, pos, box, forces)
 
 
@@ -387,8 +435,9 @@ def _band_args(config: StepConfig, ctx: BandedCtx):
 def build_mv(config: StepConfig, ctx, ft):
     """The step's first near-field matvec, (ctx, M_real ft).  Banded: the
     fused build of A + matvec, for ft (3, C, S) or two right-hand sides
-    (6, C, S); blocked: a plain ``mreal_t`` on the blocks prepare built."""
-    if config.engine == "blocked":
+    (6, C, S); blocked and gather: a plain ``mreal_t`` on what prepare
+    built."""
+    if config.engine != "banded":
         return ctx, mreal_t(config, ctx, ft)
     blocks, u = bdn.build_mv_banded(*_band_args(config, ctx), ft,
                                     config.params.self_mobility)
@@ -396,8 +445,11 @@ def build_mv(config: StepConfig, ctx, ft):
 
 
 def mreal_t(config: StepConfig, ctx, cells):
-    """M_real cells (3, C, cap) from the step's stored near-field data."""
+    """M_real cells (3, C, cap) from the step's stored near-field data (on
+    the gather engine, (3, N) in and out)."""
     mob = config.params.self_mobility
+    if config.engine == "gather":
+        return nearfield.mreal_matvec_t(ctx.coeffs, cells, mob)
     if config.engine == "blocked":
         return bnf.matvec_cells(ctx.blocks, config.nf_spec, ctx.nf_bins,
                                 cells, mob)
@@ -407,16 +459,23 @@ def mreal_t(config: StepConfig, ctx, cells):
 def _far_field(config: StepConfig, ctx, box: Box, noise_args):
     """Wave-space velocities (N, 3): [spread the binned forces ctx.ff_f ->
     rfft -> Green] (+ Hermitian noise when ``noise_args`` = (T, dt,
-    generator, uniforms)) -> irfft -> contract.  The z-column far field
-    where config.colff_spec is set, else the stored-weight one."""
+    generator, uniforms)) -> irfft -> contract.  The gather engine's taps,
+    else the z-column far field where config.colff_spec is set, else the
+    stored-weight one."""
     p = config.params
     col, blk = config.colff_spec, config.ff_spec
-    kvec, W = gridk_arrays(p, box.tilt_xy, ctx.ff_bins.px.device, half=True)
+    gather = config.engine == "gather"
+    dev = ctx.taps.weights.device if gather else ctx.ff_bins.px.device
+    kvec, W = gridk_arrays(p, box.tilt_xy, dev, half=True)
     ghat = None
     if ctx.ff_f is not None:
-        grid = (cff.spread_col_kernel(ctx.ff_f, col, p, ctx.ff_factors)
-                if col is not None else bff.spread_blocked(
-                    ctx.ff_bins, ctx.ff_f, box, blk, p, ctx.ff_factors))
+        if gather:
+            grid = farfield.spread(ctx.taps, ctx.ff_f, p)
+        elif col is not None:
+            grid = cff.spread_col_kernel(ctx.ff_f, col, p, ctx.ff_factors)
+        else:
+            grid = bff.spread_blocked(ctx.ff_bins, ctx.ff_f, box, blk, p,
+                                      ctx.ff_factors)
         ghat = apply_green(torch.fft.rfftn(grid, dim=(1, 2, 3)), kvec, W)
     if noise_args is not None:
         T, dt, generator, uniforms = noise_args
@@ -425,6 +484,8 @@ def _far_field(config: StepConfig, ctx, box: Box, noise_args):
         ghat = nh if ghat is None else ghat + nh
     grid_v = torch.fft.irfftn(ghat, s=(p.Nx, p.Ny, p.Nz),
                               dim=(1, 2, 3)).to(torch.float32)
+    if gather:
+        return farfield.contract(ctx.taps, grid_v, p)
     u_cells = (cff.contract_col_kernel(grid_v, col, p, ctx.ff_factors)
                if col is not None else bff.contract_blocked(
                    ctx.ff_bins, grid_v, box, blk, p, ctx.ff_factors))
@@ -432,7 +493,9 @@ def _far_field(config: StepConfig, ctx, box: Box, noise_args):
 
 
 def _nf_back(config: StepConfig, ctx, cells):
-    """(3, C, cap) near-field slots -> (N, 3)."""
+    """(3, C, cap) near-field slots (gather: (3, N)) -> (N, 3)."""
+    if config.engine == "gather":
+        return cells.t()
     return vec_from_cells(ctx.nf_bins, _nf_bin_spec(config), cells)
 
 
@@ -449,7 +512,12 @@ def _as_f32(x, device) -> torch.Tensor:
 
 
 def _psi(config: StepConfig, ctx, generator, uniforms):
-    """psi (3, C, cap) in the near field's slots, zero in pad slots."""
+    """psi (3, C, cap) in the near field's slots, zero in pad slots (gather:
+    (3, N))."""
+    if config.engine == "gather":
+        nf = ctx.coeffs.nbr
+        return noise.particle_noise_t((nf.shape[0],), nf.device, generator,
+                                      uniforms)
     spec = _nf_bin_spec(config)
     mask = ctx.nf_bins.mask
     u = noise.particle_noise_t((spec.n_cells_total, spec.cap), mask.device,
@@ -466,7 +534,8 @@ def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
     config.thermal); dt: timestep; shear_rate: current rate (adds rate*y to
     the x velocity); new_tilt: next-step box tilt (None keeps the current).
     ``uniforms``: optional (psi (3, C, cap), wave (6, Nx, Ny, Nz//2+1)) raw
-    draws replacing the step's generator (cross-package tests).
+    draws replacing the step's generator (cross-package tests); on the
+    gather engine psi is (3, N).
 
     Returns (new_state, info) with info velocities (N, 3), nbr_overflow
     (() int32 tensor) and m_lanczos (int)."""
@@ -499,7 +568,8 @@ def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
         else:
             ctx, w0 = build_mv(config, ctx, psi / vnorm)
             if config.has_forces:
-                # blocked: M F is a matvec of its own on the binned forces
+                # blocked and gather: M F is a matvec of its own on the
+                # forces in the engine's slots
                 u = u + _nf_back(config, ctx, mreal_t(config, ctx, ctx.nf_f))
         probe = int(state.step % M_SHRINK_PERIOD == 0)
         u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(

@@ -8,11 +8,12 @@ reference ``Stokes::setParams`` (Stokes.cc:129-424):
                              rounded up to 2^a 3^b 5^c in [8, 4096]
   * spectral-Ewald Gaussian  (m, P, eta) with the shear safety factor
                              lambda(max_strain) = 1 + g^2/2 + g sqrt(1 + g^2/4)
-  * the real-space self mobility.
+  * the real-space self mobility and the gather engine's Ewald table.
 
-The banded engine evaluates Chebyshev fits of the pair functions
-(ops/chebyshev.py), so the interpolation table the JAX package also builds
-for its gather engine is not made here.
+The banded and blocked engines evaluate Chebyshev fits of the pair
+functions (ops/chebyshev.py); the gather engine interpolates the table
+``ewald_table`` (numpy float32, bitwise the JAX package's; not compared and
+not hashed, as it is a function of the other fields).
 """
 
 from __future__ import annotations
@@ -83,6 +84,12 @@ class PSEParams:
     gauss_m: float = 0.0
     gauss_P: int = 0
     eta: float = 0.0
+
+    # the gather engine's (ewald_n + 1, 4) float32 table: a function of the
+    # fields above, so not compared and not hashed
+    ewald_table: np.ndarray = dataclasses.field(
+        default=None, compare=False, hash=False, repr=False
+    )
 
     @property
     def n_grid_total(self) -> int:
@@ -166,6 +173,7 @@ def make_params(
     eta = (2.0 * w / gauss_m) ** 2 * (xi * xi)
 
     ewald_dr = 1e-3
+    table, ewald_n = tables.build_ewald_table(xi, ewald_cut, ewald_dr, radius)
     return PSEParams(
         xi=xi,
         error=error,
@@ -174,7 +182,7 @@ def make_params(
         radius=float(radius),
         ewald_cut=ewald_cut,
         ewald_dr=ewald_dr,
-        ewald_n=int(ewald_cut / ewald_dr - 1),
+        ewald_n=ewald_n,
         self_mobility=tables.self_mobility(xi, radius),
         Nx=Nx,
         Ny=Ny,
@@ -183,6 +191,7 @@ def make_params(
         gauss_m=gauss_m,
         gauss_P=gauss_P,
         eta=eta,
+        ewald_table=table,
     )
 
 

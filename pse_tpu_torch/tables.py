@@ -10,11 +10,12 @@ in units where 6*pi*eta*a = a.  The expressions are those of Fiore, Balboa
 Usabiaga, Donev & Swan, J. Chem. Phys. 146, 124116 (2017), with three
 branches (separated, touching, overlapping).  They cancel catastrophically in
 float32, so they are evaluated in float64 with numpy; ops/chebyshev.py fits
-them once per configuration and the device only evaluates the fits.
+them once per configuration for the banded and blocked engines, and
+``build_ewald_table`` tabulates them for the gather engine's linear
+interpolation (ops/nearfield.py).
 
 This is a numpy copy of the JAX package's ``tables.py`` (the port imports
-nothing from that package): the table builder used only by its gather engine
-is left out.
+nothing from that package).
 """
 
 from __future__ import annotations
@@ -270,3 +271,42 @@ def real_space_pair_functions(r, xi: float, a: float = 1.0):
     imrr = np.where(r > 2.0 * a, imrr_far, np.where(r == 2.0 * a, imrr_touch, imrr_near))
     rr = np.where(r > 2.0 * a, rr_far, np.where(r == 2.0 * a, rr_touch, rr_near))
     return imrr, rr
+
+
+def rpy_pair_functions(r, a: float = 1.0):
+    """Unscreened (plain) RPY pair functions, for xi -> 0 oracle tests.
+
+    Separated (r >= 2a): UF1 = 3a/4r + a^3/2r^3, UF2 = 3a/2r - a^3/r^3;
+    overlapping (r < 2a): the standard RPY regularization
+    M = (1 - 9r/32a) I + (3r/32a) r-hat r-hat (units 6 pi eta a = a)."""
+    r = np.asarray(r, dtype=np.float64)
+    uf1_far = 3.0 * a / (4.0 * r) + a ** 3 / (2.0 * r ** 3)
+    uf2_far = 3.0 * a / (2.0 * r) - a ** 3 / r ** 3
+    uf1_near = (1.0 - 9.0 * r / (32.0 * a)) / a
+    uf2_near = (1.0 - 9.0 * r / (32.0 * a) + 3.0 * r / (32.0 * a)) / a
+    uf1 = np.where(r >= 2.0 * a, uf1_far, uf1_near)
+    uf2 = np.where(r >= 2.0 * a, uf2_far, uf2_near)
+    return uf1, uf2
+
+
+def build_ewald_table(xi: float, ewald_cut: float, dr: float = 1e-3,
+                      a: float = 1.0):
+    """The packed (nR, 4) float32 interpolation table of the gather engine.
+
+    The reference layout (Stokes.cc:309-422): row k is evaluated at
+    r = (k+1) dr, columns (UF1(r), UF2(r), UF1(r+dr), UF2(r+dr)); the last
+    row's forward values are the next exact values (the reference leaves
+    them 0; they are never read at r < ewald_cut).
+
+    Returns (table float32 (nR, 4), ewald_n int)."""
+    ewald_n = int(ewald_cut / dr - 1)
+    n_r = ewald_n + 1
+    kk = np.arange(n_r + 1, dtype=np.float64)
+    r = kk * dr + dr  # one extra point so row nR-1 has valid forward values
+    uf1, uf2 = real_space_pair_functions(r, xi, a)
+    table = np.zeros((n_r, 4), dtype=np.float32)
+    table[:, 0] = uf1[:n_r].astype(np.float32)
+    table[:, 1] = uf2[:n_r].astype(np.float32)
+    table[:, 2] = uf1[1 : n_r + 1].astype(np.float32)
+    table[:, 3] = uf2[1 : n_r + 1].astype(np.float32)
+    return table, ewald_n

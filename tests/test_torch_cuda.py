@@ -7,9 +7,9 @@ dependencies; the repository's conftest imports jax, so run it there with
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
 Sizes are small (the banded test config, N = 1080 in L = 24, N = 5300 in
-L = 40, and the oracle gate's N = 2048 in L = 26.71 with its 27^3 grid and
-3 x 3 far-field columns); chip_smoke.py holds the kernels at the main
-path's shapes.
+L = 40, the oracle gate's N = 2048 in L = 26.71 with its 27^3 grid and
+3 x 3 far-field columns, and the gather engine's fallback box, N = 107 in
+L = 10); chip_smoke.py holds the kernels at the main path's shapes.
 """
 
 from types import SimpleNamespace
@@ -609,3 +609,62 @@ def test_blocked_step_and_mobility_on_card_match_cpu(cuda, thermal,
     uc, _ = pi.mobility(cpu, pos, forces, 0.3)
     ug, og = pi.mobility(gpu, pos, forces, 0.3)
     assert int(og) == 0 and _rel_max(ug.cpu(), uc) < 1e-4
+
+
+@pytest.mark.parametrize("box,n,subdiv", [(10.0, 107, 1),      # all-pairs
+                                          (26.71, 2048, 1),    # 3 x 5 x 5
+                                          (26.71, 2048, 2)])   # stencil
+@pytest.mark.parametrize("thermal,has_forces", [(True, False), (True, True),
+                                                (False, True)])
+def test_gather_step_and_mobility_on_card_match_cpu(cuda, box, n, subdiv,
+                                                    thermal, has_forces):
+    """The gather engine's step and U = M F, card vs CPU: velocities <=
+    1e-4 with equal m, the neighbor idx equal, reruns bitwise (the tap
+    spread included); the cell list's binning runs the fill kernel once
+    per step, the all-pairs list none, and no other kernel launches."""
+    from pse_tpu_torch import neighbors as nb
+    from pse_tpu_torch.ops import farfield as ff
+    from pse_tpu_torch.ops.column_farfield import (contract_col_kernel,
+                                                   spread_moments_kernel)
+
+    params = make_params(xi=0.5, error=1e-3, L=box)
+    kw = dict(engine="gather", thermal=thermal, has_forces=has_forces,
+              nbr_subdiv=subdiv)
+    gpu = pi.make_config(params, n, device="cuda", **kw)
+    cpu = pi.make_config(params, n, device="cpu", **kw)
+    assert gpu.engine == cpu.engine == "gather"
+    rng = np.random.default_rng(9)
+    pos = rng.uniform(-box / 2, box / 2, size=(n, 3)).astype(np.float32)
+    forces = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    p = params
+    draws = (rng.uniform(-1.7, 1.7, (3, n)).astype(np.float32),
+             rng.uniform(-1.2, 1.2, (6, p.Nx, p.Ny, p.Nz // 2 + 1)
+                         ).astype(np.float32)) if thermal else None
+    T = 1.0 if thermal else 0.0
+    wrappers = (fill_cells, contract_col_kernel, spread_moments_kernel,
+                bdn.build_mv_banded, bdn.matvec_banded)
+    for w in wrappers:
+        w.launches = 0
+    _, ic = pi.step(cpu, pi.make_state(pos, 2, 0.3, "cpu"),
+                    forces if has_forces else None, T, 1e-3, 0.4,
+                    uniforms=draws)
+    runs = [pi.step(gpu, pi.make_state(pos, 2, 0.3, "cuda"),
+                    forces.cuda() if has_forces else None, T, 1e-3, 0.4,
+                    uniforms=draws)[1] for _ in range(2)]
+    assert runs[0]["m_lanczos"] == ic["m_lanczos"]
+    assert _rel_max(runs[0]["velocities"].cpu(), ic["velocities"]) < 1e-4
+    assert torch.equal(runs[0]["velocities"], runs[1]["velocities"])
+    cells = 0 if gpu.nbr_spec.all_pairs else 1
+    assert [w.launches for w in wrappers] == [2 * cells, 0, 0, 0, 0]
+    box_t = make_box(box, 0.3)
+    lg = nb.build_neighbor_list(torch.as_tensor(pos, device="cuda"), box_t,
+                                gpu.nbr_spec)
+    lc = nb.build_neighbor_list(torch.as_tensor(pos), box_t, cpu.nbr_spec)
+    assert torch.equal(lg.idx.cpu(), lc.idx) and not bool(lg.overflow)
+    taps = ff.compute_taps(torch.as_tensor(pos, device="cuda"), box_t, p)
+    g1 = ff.spread(taps, forces.cuda(), p)
+    assert torch.equal(g1, ff.spread(taps, forces.cuda(), p))
+    if not thermal:
+        uc, _ = pi.mobility(cpu, pos, forces, 0.3)
+        ug, og = pi.mobility(gpu, pos, forces, 0.3)
+        assert int(og) == 0 and _rel_max(ug.cpu(), uc) < 1e-4

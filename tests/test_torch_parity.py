@@ -431,6 +431,11 @@ def test_port_imports_neither_jax_nor_pse_tpu():
     files = sorted((REPO / "pse_tpu_torch").rglob("*.py")) + [
         REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {path.relative_to(REPO).as_posix() for path in files}
+    assert {f"pse_tpu_torch/{m}.py" for m in (
+        "neighbors", "ops/nearfield", "ops/farfield", "utils/gsd",
+        "utils/trajectory", "utils/backend", "utils/cache",
+        "examples/oscillatory_shear")} <= names
     for path in files:
         text = path.read_text()
         bad = [m.group(0).strip() for m in _FORBIDDEN.finditer(text)

@@ -4,7 +4,7 @@ One full thermal, force-free banded step with JAX's own draws injected (the
 psi and wave uniforms ``integrator.step`` draws from fold_in(PRNGKey(
 hash_seed(seed)), step)), bitwise reruns, the Brownian covariance against
 ``pse_tpu``'s mobility, the Simulation loop and checkpoints written by
-``pse_tpu``, and the not-yet-ported paths raising (the with-forces and
+``pse_tpu``, halo slabs raising and the engine choice (the with-forces and
 athermal paths are held to ``pse_tpu`` in test_torch_forces.py).  CPU only: the port's
 kernel wrappers run their plain versions here.
 """
@@ -188,22 +188,28 @@ def test_simulation_runs_sheared_and_resumes_a_pse_tpu_checkpoint(tmp_path):
 
 
 def test_unported_paths_raise_not_implemented():
-    """The gather engine and halo slabs still raise, naming ROADMAP; the
-    blocked engine, the banded -> blocked fallback of a box too sparse to
-    band and PSEv1.group now run, choosing what pse_tpu chooses."""
+    """Halo slabs still raise, naming ROADMAP; the gather engine, the
+    fallbacks of boxes too small to band or block, the blocked engine and
+    PSEv1.group run, choosing pse_tpu's engine and nbr_spec."""
     tp = P.make_params(xi=0.5, error=1e-3, L=L)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pi.make_config(tp, N, engine="gather", has_forces=False,
-                       device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):   # halo slabs
         pi.make_config(tp, N, engine="banded", shard_slabs=2, device="cpu")
     jp = J.make_params(xi=0.5, error=1e-3, L=L)
-    for n, engine in ((N, "blocked"), (64, "banded")):          # 64: sparse
+    for n, engine, expect in ((N, "blocked", "blocked"),
+                              (64, "banded", "blocked"),       # 64: sparse
+                              (N, "gather", "gather")):
         cfg = pi.make_config(tp, n, engine=engine, has_forces=False,
                              device="cpu")
         jcfg = ji.make_config(jp, n, engine=engine, has_forces=False)
-        assert cfg.engine == jcfg.engine == "blocked"
+        assert cfg.engine == jcfg.engine == expect
         assert cfg.nf_spec == jcfg.nf_spec and cfg.band_spec is None
+        assert cfg.nbr_spec == jcfg.nbr_spec
+    small = 10.0                 # grid too small to block: gather
+    sp, jsp = (pkg.make_params(xi=0.5, error=1e-3, L=small) for pkg in (P, J))
+    cfg = pi.make_config(sp, 107, engine="banded", device="cpu")
+    jcfg = ji.make_config(jsp, 107, engine="banded")
+    assert cfg.engine == jcfg.engine == "gather"
+    assert cfg.nbr_spec == jcfg.nbr_spec and cfg.nbr_spec.all_pairs
     sim = P.Simulation(positions=_positions(1), L=L, dt=1e-3, device="cpu")
     sim.set_integrator(P.PSEv1(T=1.0, group=np.arange(10)),
                        engine="banded", verbose=False)
