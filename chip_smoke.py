@@ -546,11 +546,13 @@ def phase_gather_timing(simg, results):
     written once) over 3.35 TB/s."""
     import torch
 
+    from pse_tpu_torch import cellbins as cb
     from pse_tpu_torch import neighbors as nb
     from pse_tpu_torch.box import make_box
     from pse_tpu_torch.cellbins import BinSpec, bin_particles
     from pse_tpu_torch.ops import farfield as ff
     from pse_tpu_torch.ops import nearfield as nf
+    from pse_tpu_torch.params import ewald_table_on
 
     config, p = simg.config, simg.config.params
     spec = config.nbr_spec
@@ -564,7 +566,8 @@ def phase_gather_timing(simg, results):
           f"max_neighbors {K} ({n * K / 1e6:.2f} M pair slots)")
     nlist = nb.build_neighbor_list(pos, box, spec)
     counts = (nlist.idx < n).sum(dim=1)
-    coeffs = nf.precompute_pair_coeffs(pos, nlist.idx, box, p.ewald_table,
+    table = ewald_table_on(p, pos.device)
+    coeffs = nf.precompute_pair_coeffs(pos, nlist.idx, box, table,
                                        p.ewald_cut, p.ewald_dr, p.ewald_n)
     taps = ff.compute_taps(pos, box, p)
     g = torch.Generator(device="cuda")
@@ -580,7 +583,7 @@ def phase_gather_timing(simg, results):
         ("build_neighbor_list",
          lambda: nb.build_neighbor_list(pos, box, spec), 12 * n + 4 * n * K),
         ("precompute_pair_coeffs",
-         lambda: nf.precompute_pair_coeffs(pos, nlist.idx, box, p.ewald_table,
+         lambda: nf.precompute_pair_coeffs(pos, nlist.idx, box, table,
                                            p.ewald_cut, p.ewald_dr,
                                            p.ewald_n),
          12 * n + 4 * n * K + 16 * (p.ewald_n + 1) + (5 * 4 + item) * n * K),
@@ -605,28 +608,101 @@ def phase_gather_timing(simg, results):
     print(f"  neighbors per particle: max {int(counts.max())}, mean "
           f"{float(counts.float().mean()):.2f} of {K}; taps per grid node: "
           f"at most {width} (the spread table's width)")
-    # the neighbor build's parts: the cell binning (the fill kernel's
-    # path), the compaction (one row chunk at this run's mean count,
-    # scaled to N rows), and the rest (candidate gathers, distance filter)
-    per_row = stencil * spec.cell_capacity
+    # the neighbor build's parts on this build's own data: the cell binning
+    # (the fill kernel's path), then the candidates with their distance
+    # mask and the compaction, each timed on the build's first row chunk
+    # and scaled to N rows; the rest (joining the chunks) by difference
+    _, per_row, block = nb._candidates(pos, box, spec)
     r0, r1 = nb._row_chunks(n, per_row)[0]
-    keep = float(counts.float().mean()) / per_row
-    mask = torch.rand((r1 - r0, per_row), generator=g, device="cuda") < keep
-    cand = torch.randint(0, n, mask.shape, generator=g, device="cuda")
+    cand, mask = block(r0, r1)
+    scale = n / (r1 - r0)
     bspec = BinSpec(tuple(spec.n_cells), spec.cell_capacity)
     split = {
         "bin_particles": cuda_ms(lambda: bin_particles(pos, box, bspec), 5),
+        "candidates_and_filter": cuda_ms(lambda: block(r0, r1), 3) * scale,
         "compact_rows": cuda_ms(lambda: nb._compact_rows(cand, mask, n, K), 3)
-        * n / (r1 - r0)}
-    del mask, cand
-    split["candidates_and_filter"] = (out["build_neighbor_list"]["ms"]
-                                      - sum(split.values()))
+        * scale}
+    del cand, mask
+    split["rest"] = out["build_neighbor_list"]["ms"] - sum(split.values())
     out["build_neighbor_list"]["parts_ms"] = split
-    print("  the neighbor build's parts: " + ", ".join(
-        f"{k} {v:.4f} ms" for k, v in split.items())
-        + " (the last by difference)")
+    print(f"  the neighbor build's parts (the middle two timed on its first "
+          f"chunk, {r1 - r0} of {n} rows, scaled to N): " + ", ".join(
+              f"{k} {v:.4f} ms" for k, v in split.items())
+          + " (the last by difference)")
+    # the fill at this path's shape, without values: each particle's key,
+    # order entry and coordinates read and rank written, five 4-byte planes
+    # per slot, starts and counts per cell, the flag
+    ops = cb.fill_operands(pos, box, bspec, False)
+    C, cap = bspec.n_cells_total, bspec.cap
+    fl = results["fill_cells"]
+    fl.update(
+        gather_ms=cuda_ms(lambda: cb.fill_cells(*ops, C, cap), 50),
+        gather_plain_ms=cuda_ms(
+            lambda: cb.fill_cells_reference(*ops, C, cap), 20),
+        gather_kernel_ms=graph_ms(lambda: cb.fill_cells(*ops, C, cap), 20),
+        gather_bound_ms=1e3 * (28 * n + 20 * C * cap + 8 * C + 1)
+        / HBM_BYTES_PER_S)
+    print(f"  fill (neighbor cells, no values): wrapper "
+          f"{fl['gather_ms']:.4f} ms (CUDA events), kernel alone "
+          f"{fl['gather_kernel_ms']:.4f} ms (CUDA-graph replay), bound "
+          f"{fl['gather_bound_ms']:.4f} ms by bytes, plain "
+          f"{fl['gather_plain_ms']:.4f} ms")
+    out["host_syncs"] = _sync_idle(simg)
     results["gather"] = out
     torch.cuda.empty_cache()
+
+
+def _sync_idle(sim, steps=3):
+    """The device idle that follows the host's reads of device values in a
+    step (torch.profiler, on the host's clock): for each device-to-host
+    copy, the gap from its end to the start of the next device activity,
+    summed per step, in all and for the copy inside compute_taps (the tap
+    table's width).  A lower bound of what each read costs: the host may
+    stay behind for a few launches more.  Reports only."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from pse_tpu_torch.ops import farfield as ff
+
+    taps_fn = ff.compute_taps
+
+    def traced(*a, **k):
+        with record_function("compute_taps"):
+            return taps_fn(*a, **k)
+    ff.compute_taps = traced
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            sim.run(steps)
+            torch.cuda.synchronize()
+        events = list(prof.events())
+        dev = sorted((e.time_range.start, e.time_range.end, e.name)
+                     for e in events if e.device_type == DeviceType.CUDA)
+        spans = [(e.time_range.start, e.time_range.end) for e in events
+                 if e.name == "compute_taps"
+                 and e.device_type == DeviceType.CPU]
+    except (RuntimeError, AttributeError) as e:   # tracing unavailable
+        print(f"  host-sync idle not measured: {e}")
+        return None
+    finally:
+        ff.compute_taps = taps_fn
+    gaps = []                       # (copy start, idle after the copy)
+    for i, (t0, t1, name) in enumerate(dev):
+        if "DtoH" in name and i + 1 < len(dev):
+            gaps.append((t0, max(0.0, dev[i + 1][0] - t1)))
+    taps = [g for t0, g in gaps if any(a <= t0 <= b for a, b in spans)]
+    r = {"copies_per_step": len(gaps) / steps,
+         "idle_ms_per_step": sum(g for _, g in gaps) / steps / 1e3,
+         "tap_width_copies_per_step": len(taps) / steps,
+         "tap_width_idle_ms_per_step": sum(taps) / steps / 1e3}
+    print(f"  host reads of device values (torch.profiler, {steps} steps): "
+          f"{r['copies_per_step']:.1f} device-to-host copies per step, "
+          f"{r['idle_ms_per_step']:.4f} ms/step of device idle right after "
+          f"them; the tap-width read {r['tap_width_copies_per_step']:.1f} "
+          f"per step, {r['tap_width_idle_ms_per_step']:.4f} ms/step")
+    return r
 
 
 def _step_wrappers(forces: bool, engine: str = "banded"):
@@ -982,22 +1058,37 @@ def _mismatches(a, b):
     return int((a != b).sum())
 
 
+def _fill_binnings(config):
+    """(name, BinSpec, columns) of every binning of the config's engine
+    that goes through the fill: the near field's (banded columns or blocked
+    cells) and the column far field's, or the gather engine's neighbor
+    cells."""
+    from pse_tpu_torch.cellbins import BinSpec
+
+    if config.engine == "gather":
+        s = config.nbr_spec
+        return (("neighbor cells", BinSpec(tuple(s.n_cells),
+                                           s.cell_capacity), False),)
+    near = (("near", config.band_spec.bins, True) if config.band_spec
+            else ("near blocked", config.nf_spec.bins, False))
+    return near, ("far", config.colff_spec.bins, False)
+
+
 def _check_fill(ph, results, config, pos, box, vals, label, overfull):
     """The fill kernel against its plain version on the same sort, every
     output bitwise (slots, value rows, ranks, overflow, starts, counts),
-    for both binnings of the config's engine."""
+    for each binning of the config's engine (``vals`` None: the fill
+    without values, as the gather path calls it)."""
     from pse_tpu_torch import cellbins as cb
 
-    near = (("near", config.band_spec.bins, True) if config.band_spec
-            else ("near blocked", config.nf_spec.bins, False))
-    for name, spec, columns in (near, ("far", config.colff_spec.bins,
-                                       False)):
+    for name, spec, columns in _fill_binnings(config):
         ops = cb.fill_operands(pos, box, spec, columns)
         C, cap = spec.n_cells_total, spec.cap
         got = cb.fill_cells(*ops, C, cap, vals)
         want = cb.fill_cells_reference(*ops, C, cap, vals)
         bad = {k: _mismatches(a, b)
-               for k, a, b in zip(cb.Fill._fields, got, want)}
+               for k, a, b in zip(cb.Fill._fields, got, want)
+               if a is not None or b is not None}
         ph.check(f"fill {name} {label} (mismatched elements over all "
                  f"outputs; overflow {bool(got.overflow)}, largest count "
                  f"{int(got.counts.max())} of cap {cap})", sum(bad.values()),
@@ -1055,9 +1146,10 @@ def _check_blocked(ph, results, sim, vals):
         torch.cuda.empty_cache()
 
 
-def phase_kernels(ph, sim, results, simb=None):
+def phase_kernels(ph, sim, results, simb=None, simg=None):
     """Each kernel against its plain version at the main path's shapes (and
-    the fill and the blocked matvec at the blocked path's, from ``simb``)."""
+    the fill and the blocked matvec at the blocked path's, from ``simb``,
+    and the fill at the gather path's, from ``simg``)."""
     import torch
 
     from pse_tpu_torch import integrator, make_params
@@ -1141,6 +1233,17 @@ def phase_kernels(ph, sim, results, simb=None):
 
     if simb is not None:
         _check_blocked(ph, results, simb, vals)
+    if simg is not None:
+        # the gather path's fill: the neighbor cells, without values
+        gpos = simg.state.pos
+        lump = gpos.clone()
+        lump[:2000] = 0.5                   # one overfull cell
+        for tilt, where, at in ((0.0, "gather", gpos), (0.3, "gather", gpos),
+                                (0.3, "gather overfull", lump)):
+            _check_fill(ph, results, simg.config, at,
+                        make_box(simg.config.params.L, tilt), None, f"tilt={tilt} {where}",
+                        where.endswith("overfull"))
+        del lump
 
     d = np.load(ORACLE)
     params = make_params(xi=float(d["xi"]), error=ERROR, L=float(d["L"]))
@@ -1472,7 +1575,7 @@ def main() -> int:
     phase_sedimentation(ph)
     results = {name: {"err": [], "library_ms": None}
                for name, _, _ in KERNELS}
-    phase_kernels(ph, simf, results, simb)
+    phase_kernels(ph, simf, results, simb, simg)
     phase_timing(simf, results)
     phase_blocked_timing(simb, results)
     phase_gather_timing(simg, results)
@@ -1493,7 +1596,9 @@ def main() -> int:
                                  "bound_full_A_ms", "bin_columns_ms",
                                  "bin_particles_ms", "blocked_ms",
                                  "blocked_kernel_ms", "blocked_bound_ms",
-                                 "blocked_plain_ms") if k in r},
+                                 "blocked_plain_ms", "gather_ms",
+                                 "gather_kernel_ms", "gather_bound_ms",
+                                 "gather_plain_ms") if k in r},
         })
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "

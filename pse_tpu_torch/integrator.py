@@ -37,7 +37,7 @@ import torch
 from .box import Box, make_box, wrap
 from .cellbins import bin_columns, bin_particles, vec_from_cells
 from .neighbors import NeighborSpec, build_neighbor_list, grow_spec, make_spec
-from .params import PSEParams, gridk_arrays
+from .params import PSEParams, ewald_table_on, gridk_arrays
 from .ops import banded_nearfield as bdn
 from .ops import blocked_farfield as bff
 from .ops import blocked_nearfield as bnf
@@ -411,8 +411,8 @@ def prepare_gather(config: StepConfig, pos, box: Box, forces=None):
     p = config.params
     nlist = build_neighbor_list(pos, box, config.nbr_spec)
     coeffs = nearfield.precompute_pair_coeffs(
-        pos, nlist.idx, box, p.ewald_table, p.ewald_cut, p.ewald_dr,
-        p.ewald_n)
+        pos, nlist.idx, box, ewald_table_on(p, pos.device), p.ewald_cut,
+        p.ewald_dr, p.ewald_n)
     taps = farfield.compute_taps(pos, box, p)
     nf_f = None if forces is None else forces.t()
     return (GatherCtx(coeffs, taps, nf_f, forces),

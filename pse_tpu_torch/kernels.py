@@ -73,10 +73,14 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
-def build_dir() -> Path:
+def build_root() -> Path:
+    """The root the kernel library is built under."""
     root = os.environ.get("PSE_TPU_TORCH_BUILD_DIR")
-    root = Path(root) if root else Path(__file__).resolve().parent / "_build"
-    return root / _digest()
+    return Path(root) if root else Path(__file__).resolve().parent / "_build"
+
+
+def build_dir() -> Path:
+    return build_root() / _digest()
 
 
 def build() -> Path:

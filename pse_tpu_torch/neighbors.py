@@ -148,27 +148,14 @@ def _stencil(subdiv: int, device):
                          for dz in rng], dtype=torch.int64, device=device)
 
 
-def build_neighbor_list(pos: torch.Tensor, box: Box,
-                        spec: NeighborSpec) -> NeighborList:
-    """The (N, max_neighbors) neighbor list of ``pos`` (N, 3) float32."""
+def _candidates(pos: torch.Tensor, box: Box, spec: NeighborSpec):
+    """(cell overflow flag, candidates per row, block): ``block(r0, r1)``
+    gives the (R, per_row) candidate ids of the particles r0:r1, padded
+    with N, and their mask (a particle, not the row's own, within rcut)."""
     n = pos.shape[0]
     dev = pos.device
     rcut2 = float(np.float32(spec.rcut * spec.rcut))
     pos_pad_t = torch.cat([pos, pos.new_zeros((1, 3))]).t().contiguous()
-    K = spec.max_neighbors
-
-    def filtered(rows, cand):
-        """(idx, overflow) of the candidate block ``cand`` (R, M), padded
-        with N, of the particles ``rows`` (R,) (a slice of arange(N))."""
-        dx = pos[rows, 0][:, None] - pos_pad_t[0][cand]
-        dy = pos[rows, 1][:, None] - pos_pad_t[1][cand]
-        dz = pos[rows, 2][:, None] - pos_pad_t[2][cand]
-        dx, dy, dz = min_image_components(box, dx, dy, dz)
-        d2 = dx * dx + dy * dy + dz * dz
-        del dx, dy, dz
-        mask = (cand != n) & (cand != rows[:, None]) & (d2 < rcut2)
-        del d2
-        return _compact_rows(cand, mask, n, K)
 
     if spec.all_pairs:
         cell_overflow = torch.zeros((), dtype=torch.bool, device=dev)
@@ -194,10 +181,28 @@ def build_neighbor_list(pos: torch.Tensor, box: Box,
             nbr_cids = (nbr[..., 0] * ncy + nbr[..., 1]) * ncz + nbr[..., 2]
             return cell_table[nbr_cids].reshape(r1 - r0, per_row)
 
+    def block(r0, r1):
+        cand = candidates(r0, r1)
+        rows = torch.arange(r0, r1, device=dev)
+        dx = pos[rows, 0][:, None] - pos_pad_t[0][cand]
+        dy = pos[rows, 1][:, None] - pos_pad_t[1][cand]
+        dz = pos[rows, 2][:, None] - pos_pad_t[2][cand]
+        dx, dy, dz = min_image_components(box, dx, dy, dz)
+        d2 = dx * dx + dy * dy + dz * dz
+        del dx, dy, dz
+        return cand, (cand != n) & (cand != rows[:, None]) & (d2 < rcut2)
+
+    return cell_overflow, per_row, block
+
+
+def build_neighbor_list(pos: torch.Tensor, box: Box,
+                        spec: NeighborSpec) -> NeighborList:
+    """The (N, max_neighbors) neighbor list of ``pos`` (N, 3) float32."""
+    n = pos.shape[0]
+    cell_overflow, per_row, block = _candidates(pos, box, spec)
     idxs, flags = [], [cell_overflow]
     for r0, r1 in _row_chunks(n, per_row):
-        idx, ovf = filtered(torch.arange(r0, r1, device=dev),
-                            candidates(r0, r1))
+        idx, ovf = _compact_rows(*block(r0, r1), n, spec.max_neighbors)
         idxs.append(idx)
         flags.append(ovf)
     return NeighborList(torch.cat(idxs), torch.stack(flags).any())

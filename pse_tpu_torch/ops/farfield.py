@@ -91,7 +91,11 @@ def compute_taps(pos: torch.Tensor, box: Box, params: PSEParams) -> SpreadTaps:
 def _node_taps(flat: torch.Tensor, n_grid: int) -> torch.Tensor:
     """(n_grid, K) table of the tap ids on each node, ascending, padded
     with len(flat): a stable sort by node, each run's rank = position -
-    the run's start."""
+    the run's start.  This is the cell binning's job, but not through the
+    fill kernel: taps have no coordinates for its position planes, its
+    capacity must be known before the launch (K is this data's largest
+    run), and its overflow search walks every cell in one block, which
+    the ~10^6 grid nodes would make a serial tail."""
     n_taps = flat.shape[0]
     dev = flat.device
     nodes, perm = torch.sort(flat, stable=True)

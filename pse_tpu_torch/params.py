@@ -13,7 +13,8 @@ reference ``Stokes::setParams`` (Stokes.cc:129-424):
 The banded and blocked engines evaluate Chebyshev fits of the pair
 functions (ops/chebyshev.py); the gather engine interpolates the table
 ``ewald_table`` (numpy float32, bitwise the JAX package's; not compared and
-not hashed, as it is a function of the other fields).
+not hashed, as it is a function of the other fields), kept on the device by
+``ewald_table_on``.
 """
 
 from __future__ import annotations
@@ -193,6 +194,15 @@ def make_params(
         eta=eta,
         ewald_table=table,
     )
+
+
+@lru_cache(maxsize=8)
+def ewald_table_on(params: PSEParams, device) -> torch.Tensor:
+    """``params.ewald_table`` on ``device``, copied once per configuration
+    (equal params have equal tables): a copy from host memory in every
+    step would wait for the stream."""
+    return torch.as_tensor(params.ewald_table, dtype=torch.float32,
+                           device=device)
 
 
 @lru_cache(maxsize=8)

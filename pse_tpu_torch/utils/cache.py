@@ -8,14 +8,10 @@ the root) and reused while the sources are unchanged (``kernels.py``).
 
 from __future__ import annotations
 
-import os
-from pathlib import Path
+from .. import kernels
 
 
 def enable_compilation_cache(path: str | None = None) -> str:
     """Changes nothing; returns ``path``, or the root the kernel library is
     built under when ``path`` is None."""
-    if path is not None:
-        return str(path)
-    root = os.environ.get("PSE_TPU_TORCH_BUILD_DIR")
-    return root or str(Path(__file__).resolve().parents[1] / "_build")
+    return str(path) if path is not None else str(kernels.build_root())

@@ -1,8 +1,9 @@
 """The port's gather engine against the JAX package.
 
 The neighbor list (cubic, tilted, the stencil backend, all-pairs, overflow
-and growth), make_spec / grow_spec, the table-interpolated pair
-coefficients and matvec, the Gaussian taps with the tap spread and
+and growth, built in row chunks), make_spec / grow_spec, the
+table-interpolated pair coefficients and matvec (the table kept on the
+device once per configuration), the Gaussian taps with the tap spread and
 contract, make_config's engine choice (banded -> blocked -> gather) and
 nbr_spec, the step (brownian, with forces, athermal; JAX's psi and wave
 uniforms injected) and mobility() on the gather engine, mobility() against
@@ -119,6 +120,28 @@ def test_neighbor_overflow_and_growth_match_jax():
     np.testing.assert_array_equal(pl.idx.numpy(), np.asarray(jl.idx))
 
 
+@pytest.mark.parametrize("case", ["cells", "all_pairs", "list_overflow"])
+def test_row_chunks_give_the_same_list(monkeypatch, case):
+    """Chunks of a few rows give JAX's idx and flag, the flag of a chunk
+    after the first included (the list built in one pass there)."""
+    box = (20.0,) * 3
+    pos = _wrapped_positions(6, 200, box,
+                             spread=None if case == "all_pairs" else 15.0)
+    rcut = 3.0 if case != "all_pairs" else 8.0
+    spec = jnb.make_spec(200, box, rcut)
+    assert spec.all_pairs == (case == "all_pairs")
+    if case == "list_overflow":
+        spec = spec._replace(max_neighbors=3)
+    monkeypatch.setattr(pnb, "CHUNK_CANDIDATES", 4 * spec.cell_capacity * 27
+                        if not spec.all_pairs else 800)
+    _, per_row, _ = pnb._candidates(torch.as_tensor(pos), P.make_box(box),
+                                    pnb.NeighborSpec(*spec))
+    assert len(pnb._row_chunks(200, per_row)) >= 50
+    jl, pl = _both_lists(pos, box, 0.0, spec)
+    np.testing.assert_array_equal(pl.idx.numpy(), np.asarray(jl.idx))
+    assert bool(pl.overflow) == bool(jl.overflow) == (case == "list_overflow")
+
+
 @pytest.mark.parametrize("n,box,rcut,kw", [
     (1080, (24.0,) * 3, 5.2565, {}),
     (100_000, (97.63945917076818,) * 3, 5.2565, {}),     # the bench box
@@ -170,6 +193,19 @@ def test_pair_coeffs_and_matvec_match_jax(tilt):
                          pbox, tp.ewald_table, tp.ewald_cut, tp.ewald_dr,
                          tp.ewald_n, tp.self_mobility)
     assert torch.equal(pa, pu)
+
+
+def test_ewald_table_on_device_is_made_once():
+    """The table the step interpolates is the params' bitwise, and one
+    tensor per configuration: equal params made anew reuse it."""
+    from pse_tpu_torch.params import ewald_table_on
+
+    tp = P.make_params(xi=0.5, error=1e-3, L=L)
+    t = ewald_table_on(tp, torch.device("cpu"))
+    np.testing.assert_array_equal(t.numpy(), tp.ewald_table)
+    again = P.make_params(xi=0.5, error=1e-3, L=L)
+    assert again == tp and again.ewald_table is not tp.ewald_table
+    assert ewald_table_on(again, torch.device("cpu")) is t
 
 
 @pytest.mark.parametrize("tilt", [0.0, 0.3])
