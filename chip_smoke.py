@@ -31,18 +31,44 @@ Phases (each failure makes the script exit non-zero without the result line):
             <= 1e-4 at equal m, step and tap-spread reruns bitwise;
   [gather-oracle]  mobility() with engine="gather" at oracle_gate.npz
             against u_ref: relative 2-norm <= 5e-3;
+  [classes-small]  the class-packed build_mv and matvec (occupancy classes
+            ((t_cap-1, C-2), (t_cap, 2)) at N=1080, L=24, tilts 0, 0.07 and
+            0.3, float32 and bfloat16 A, one and two right-hand sides): u
+            bitwise the single-class kernels' u and <= 1e-5 (float32) /
+            <= 2e-3 (bfloat16) of the plain matvec in the 2-norm, the packed
+            A bitwise the single-class A's tiles of its columns (and, at
+            float32, the plain build's), perm / inv / flag equal to a numpy
+            emulation of class_assignment, reruns bitwise, an overfull
+            split flagging OVF_CLASS, and the step with classes bitwise the
+            step without;
   [main]    the brownian main path: Simulation(N=100k, phi=0.45) with
-            PSEv1(T=1, seed=1, xi=0.5, error=1e-3) on engine="banded", a
+            PSEv1(T=1, seed=1, xi=0.5, error=1e-3) on engine="banded", one
+            occupancy class (set_integrator's classes dropped), a
             warm-up, then 20 timed steps with every kernel's launch count set
-            to 0 before and read after (each kernel of the path must be > 0);
+            to 0 before and read after (each kernel of the path must be > 0;
+            build_mv once per step, the matvec m - 1 times);
             particle-steps/s, ms/step, the Lanczos m histogram, the overflow
-            retries;
+            retries, the A bytes and the peak device memory;
   [main-forces]  the same with force_fn returning bench.py's fixed random
             forces (default_rng(1).normal): the spread and the two-RHS build
             join the path;
   [main-mobility] Simulation.mobility_matvec once at the main path's state;
   [main-blocks]   build_banded_blocks once per tilt (0, 0.3) at the main
             path's state, the standalone build's entry point;
+  [main-classes], [main-classes-forces]  the same with occupancy classes,
+            as bench.py times them: 200 steps on one class, the classes
+            sized from the relaxed histogram, then the warm-up and 20 timed
+            steps (the class-packed kernels); the classes, the packed A
+            bytes against the single class's, the peak device memory, the
+            class re-measures, one more step's device memory above the
+            live baseline with the classes and with one class, and
+            alternated 10-step runs with and without them (4 pairs, ms/step
+            by the host clock, in one process state);
+  [main-classes-mobility]  mobility_matvec at that state with its classes
+            against one class: <= 1e-6 (and the mismatched elements);
+  [classes-run]  Simulation with the classes set_integrator sizes from the
+            lattice, 300 steps: the OVF_CLASS retries, the re-measures
+            (<= 2), the final classes, finite positions;
   [blocked], [blocked-forces]  the same Simulation with no engine argument:
             the default, blocked engine (asserted), a warm-up and 10 timed
             steps; ms/step, particle-steps/s, the m histogram, the retries,
@@ -56,8 +82,9 @@ Phases (each failure makes the script exit non-zero without the result line):
             fill of the neighbor list's cell binning > 0, the others 0);
   [sedimentation]  the twin of examples/sedimentation.py on the card (N=10k,
             L=64, athermal, mobility_matvec and 20 steps);
-  [profile] torch.profiler over 3 more steps of each main path, of the
-            blocked path with forces and of both gather paths: device time
+  [profile] torch.profiler over 3 more steps of each main path (with and
+            without classes), of the blocked path with forces and of both
+            gather paths: device time
             by kernel, kernel launches per step and the device's idle share;
   [kernels] each kernel against its plain version at the main path's shapes
             (and the spread and the contract at the oracle's), at tilt 0 and
@@ -95,7 +122,12 @@ Phases (each failure makes the script exit non-zero without the result line):
             launches per call by torch.profiler); the gather step's parts
             (the neighbor build, the pair coefficients, one matvec, the
             taps, the tap spread and contract) by CUDA events beside the
-            bytes each must move;
+            bytes each must move; the class-packed build_mv (two
+            right-hand sides) and matvec beside the single-class ones at
+            the [main-classes-forces] state (u bitwise; wrapper by CUDA
+            events, kernel alone by graph replay, single, packed, packed,
+            single; bounds on the live tiles' A read and the packed A
+            written);
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -118,6 +150,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, per type
 N, PHI, XI, ERROR, SEED, DT = 100_000, 0.45, 0.5, 1e-3, 1, 1e-3
 WARM_STEPS, TIMED_STEPS = 5, 20
+RELAX_STEPS = 200                 # bench.py's relaxation on one class
+CLASS_RUN_STEPS = 300
 BLOCKED_WARM, BLOCKED_TIMED = 3, 10
 GATHER_WARM, GATHER_TIMED = 3, 10
 ORACLE = os.path.join(HERE, "tests", "data", "oracle_gate.npz")
@@ -306,6 +340,147 @@ def phase_forces_small(ph):
                 ph.check(f"mobility {dtype} tilt={tilt}", r, bound)
                 if int(o_g):
                     ph.failed.append(f"mobility {dtype} tilt={tilt} overflow")
+
+
+def _class_assignment_numpy(spec, n_valid):
+    """class_assignment emulated in numpy: columns by descending tile need,
+    ties by ascending id; overflow on a segment's first member."""
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+
+    R = spec.rows
+    need = (np.maximum(n_valid, 1) + R - 1) // R
+    perm = np.lexsort((np.arange(need.size), -need))
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(perm.size)
+    over = any(need[perm[off]] > tk for tk, _, off in bdn.class_segments(spec))
+    return perm.astype(np.int32), inv.astype(np.int32), over
+
+
+def _norm_rel(a, b):
+    """||a - b|| / ||b|| (tests/test_torch_cuda.py's banded residual)."""
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def phase_classes_small(ph):
+    """The class-packed build_mv and matvec at the banded test setup
+    (N=1080, L=24, a manual 2-class split, tests/test_banded.py's
+    class-packed case) against the single-class kernels and the plain
+    matvec; the packed A against the single-class A's live tiles; the
+    assignment against a numpy emulation; an overfull split flags
+    OVF_CLASS; the step with classes against the step without."""
+    import dataclasses
+
+    import torch
+
+    from pse_tpu_torch import integrator, make_box, make_params
+    from pse_tpu_torch.cellbins import bin_columns, vec_to_cells
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+
+    print("[classes-small] class-packed build_mv and matvec (N=1080, L=24, "
+          "classes ((t_cap-1, C-2), (t_cap, 2)))")
+    rng = np.random.default_rng(31)
+    n, L = 1080, 24.0
+    pos = torch.as_tensor(rng.uniform(-L / 2, L / 2, size=(n, 3))
+                          .astype(np.float32), device="cuda")
+    forces = torch.as_tensor(rng.normal(size=(2, n, 3)).astype(np.float32),
+                             device="cuda")
+    params = make_params(xi=XI, error=ERROR, L=L)
+    checked = 0
+    for dtype, bound in (("float32", 1e-5), ("bfloat16", 2e-3)):
+        cfg = integrator.make_config(params, n, thermal=False,
+                                     engine="banded", block_dtype=dtype,
+                                     device="cuda")
+        p, bs1 = cfg.params, cfg.band_spec
+        C = bs1.bins.n_cells_total
+        t_cap = bs1.bins.cap // bs1.rows
+        bs = bs1._replace(classes=((t_cap - 1, C - 2), (t_cap, 2)))
+        for tilt in (0.0, 0.07, 0.3):
+            box = make_box(p.L, tilt)
+            bins = bin_columns(pos, box, bs.bins)
+            j0, nv, _, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+            perm, inv, ovf = bdn.class_assignment(bs, nv)
+            want = _class_assignment_numpy(bs, nv.cpu().numpy())
+            if (not np.array_equal(perm.cpu().numpy(), want[0])
+                    or not np.array_equal(inv.cpu().numpy(), want[1])
+                    or bool(ovf) != want[2] or want[2]):
+                ph.failed.append(f"classes-small class_assignment {dtype} "
+                                 f"tilt={tilt} (flag {bool(ovf)})")
+            pack = (perm, inv)
+            f = [vec_to_cells(bins, bs.bins, forces[k]) for k in range(2)]
+            args = (bins, tilt, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr,
+                    j0, nv, zsh)
+            args1 = (bins, tilt, bs1) + args[3:]
+            tag = f"{dtype} tilt={tilt}"
+            for rhs in (f[0], torch.cat(f)):
+                nr = rhs.shape[0] // 3
+                blocks, u_b = bdn.build_mv_banded(*args, rhs, p.self_mobility,
+                                                  pack=pack)
+                u_m = bdn.matvec_banded(blocks, *args, rhs, p.self_mobility,
+                                        pack=pack)
+                blocks1, u_b1 = bdn.build_mv_banded(*args1, rhs,
+                                                    p.self_mobility)
+                u_m1 = bdn.matvec_banded(blocks1, *args1, rhs,
+                                         p.self_mobility)
+                ref = bdn._reference_per_rhs(
+                    rhs, lambda fk: bdn.matvec_banded_reference(
+                        *args1[:9], fk, p.self_mobility))
+                ph.check(f"packed build_mv u vs single-class {nr}-RHS {tag} "
+                         "(mismatched elements)", int((u_b != u_b1).sum()), 0)
+                ph.check(f"packed matvec u vs single-class {nr}-RHS {tag} "
+                         "(mismatched elements)", int((u_m != u_m1).sum()), 0)
+                ph.check(f"packed build_mv vs plain {nr}-RHS {tag} (2-norm)",
+                         _norm_rel(u_b, ref), bound)
+                ph.check(f"packed matvec vs plain {nr}-RHS {tag} (2-norm)",
+                         _norm_rel(u_m, ref), bound)
+                want_a = bdn.pack_blocks_reference(blocks1, bs, perm)
+                bad = sum(int((a != b).sum()) for a, b in zip(blocks, want_a))
+                ph.check(f"packed A vs single-class A's tiles {nr}-RHS {tag} "
+                         "(mismatched elements)", bad, 0)
+                _check_rerun(ph, f"packed matvec {nr}-RHS {tag}", u_m,
+                             lambda rhs=rhs: bdn.matvec_banded(
+                                 blocks, *args, rhs, p.self_mobility,
+                                 pack=pack))
+                again = bdn.build_mv_banded(*args, rhs, p.self_mobility,
+                                            pack=pack)
+                ph.check(f"packed build_mv {nr}-RHS {tag} rerun (mismatched "
+                         "elements)", int((again[1] != u_b).sum())
+                         + sum(int((a != b).sum())
+                               for a, b in zip(again[0], blocks)), 0)
+                checked += 1
+            if dtype == "float32":
+                # the float32 build is its plain version bit for bit
+                plain = bdn.pack_blocks_reference(
+                    bdn.build_banded_blocks_reference(*args1), bs, perm)
+                ph.check(f"packed A vs plain build {tag} (mismatched "
+                         "elements)", sum(int((a != b).sum())
+                                          for a, b in zip(blocks, plain)), 0)
+        # a top class too small: the step's mask carries OVF_CLASS, and the
+        # packed kernels still run (their columns past the class are cut)
+        over = bs1._replace(classes=((2, C - 1), (t_cap, 1)))
+        ocfg = dataclasses.replace(cfg, band_spec=over)
+        box = make_box(p.L, 0.3)
+        ctx, mask = integrator.prepare(ocfg, pos, box, forces[0])
+        ctx, u = integrator.build_mv(ocfg, ctx, ctx.nf_f)
+        ph.check(f"overfull classes {dtype}: OVF_CLASS set (0 = set)",
+                 0 if int(mask) & integrator.OVF_CLASS else 1, 0)
+        if not bool(torch.isfinite(u).all()):
+            ph.failed.append(f"overfull classes {dtype}: u not finite")
+        # the steps: classes against one class, same uniforms, bitwise
+        ccfg = dataclasses.replace(cfg, band_spec=bs, thermal=True, seed=3)
+        scfg = dataclasses.replace(cfg, thermal=True, seed=3)
+        draws = _raw_uniforms(scfg, 6)
+        for tilt, rate in ((0.0, 0.0), (0.3, 0.5)):
+            outs = [integrator.step(c, integrator.make_state(
+                pos.cpu().numpy(), 3, tilt, "cuda"), forces[0], 1.0, DT, rate,
+                None, uniforms=draws) for c in (ccfg, scfg)]
+            (s_c, i_c), (s_s, i_s) = outs
+            ph.check(f"step with classes vs one class {dtype} tilt={tilt} "
+                     f"m={i_c['m_lanczos']}/{i_s['m_lanczos']} (mismatched "
+                     "elements)", int((s_c.pos != s_s.pos).sum()), 0)
+            if int(s_c.nbr_overflow):
+                ph.failed.append(f"classes-small step {dtype} tilt={tilt}: "
+                                 f"overflow {int(s_c.nbr_overflow)}")
+    print(f"  {checked} packed build_mv / matvec cases")
 
 
 def phase_oracle(ph):
@@ -749,18 +924,82 @@ def _counted(ph, label, expected, fn):
     return out, launches
 
 
-def phase_main(ph, forces: bool, engine: str = "banded"):
+def _band_bytes(bs):
+    """Bytes of A under ``bs``: per class, or (1, C, 2, S, 5W) without."""
+    import torch
+
+    item = torch.empty((), dtype=getattr(torch, bs.block_dtype)).element_size()
+    classes = bs.classes or ((bs.bins.cap // bs.rows, bs.bins.n_cells_total),)
+    return sum(c * 2 * t * bs.rows * 5 * bs.window * item for t, c in classes)
+
+
+def _step_peak(sim):
+    """Device memory one more step of ``sim`` allocates above what is live
+    before it (torch.cuda.max_memory_allocated - memory_allocated)."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sim.run(1)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def _ab_classes(sim, pairs=4, steps=10):
+    """ms/step of ``steps``-step runs of ``sim`` with its classes and with
+    one class, alternated in ``pairs`` pairs (the first side alternating
+    too), in one process state; returns {side: [ms/step, ...]}."""
+    import dataclasses
+
+    import torch
+
+    cfg = sim.config
+    sides = {"classes": cfg, "one class": dataclasses.replace(
+        cfg, band_spec=cfg.band_spec._replace(classes=None,
+                                              slab_classes=None))}
+    out = {k: [] for k in sides}
+    for i in range(pairs):
+        for name in (("classes", "one class") if i % 2 == 0
+                     else ("one class", "classes")):
+            sim.config = sides[name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sim.run(steps)
+            torch.cuda.synchronize()
+            out[name].append(1e3 * (time.perf_counter() - t0) / steps)
+    sim.config = cfg
+    return out
+
+
+def _single_class(sim):
+    """Drop the occupancy classes of sim's banded config (one class)."""
+    import dataclasses
+
+    sim.config = dataclasses.replace(sim.config, band_spec=(
+        sim.config.band_spec._replace(classes=None, slab_classes=None)))
+
+
+def phase_main(ph, forces: bool, engine: str = "banded",
+               classes: bool = False):
     """A main path through the user entry points; returns the run data.
     ``engine``: "banded", "blocked" (set_integrator without an engine,
     i.e. the default, blocked engine, asserted) or "gather", the last two
-    with fewer steps (their near fields are plain PyTorch)."""
+    with fewer steps (their near fields are plain PyTorch).  On banded,
+    ``classes=False`` runs one occupancy class (set_integrator's classes
+    dropped), ``classes=True`` follows bench.py: RELAX_STEPS on one class,
+    then the classes sized from the relaxed histogram for the warm-up and
+    the timed steps."""
+    import dataclasses
+
     import torch
 
     import pse_tpu_torch as pse
+    from pse_tpu_torch.ops import banded_nearfield as bdn
 
     pos, L = make_positions(N, PHI, seed=0)
     label = ("main" if engine == "banded" else engine) + (
-        "-forces" if forces else "")
+        "-classes" if classes else "") + ("-forces" if forces else "")
     warm, timed = {"banded": (WARM_STEPS, TIMED_STEPS),
                    "blocked": (BLOCKED_WARM, BLOCKED_TIMED),
                    "gather": (GATHER_WARM, GATHER_TIMED)}[engine]
@@ -786,6 +1025,26 @@ def phase_main(ph, forces: bool, engine: str = "banded"):
     if sim.config.engine != engine:
         ph.failed.append(f"{label}: the engine is {sim.config.engine}, "
                          f"expected {engine}")
+    if engine == "banded":
+        print(f"  set_integrator's classes (lattice histogram): "
+              f"{sim.config.band_spec.classes}")
+        _single_class(sim)
+    if classes:
+        t0 = time.perf_counter()
+        sim.run(RELAX_STEPS)
+        bs = sim.config.band_spec
+        counts = bdn.measure_col_counts(bs, sim.state.pos.cpu().numpy(),
+                                        sim.config.params.L,
+                                        tilt=sim.state.tilt_xy)
+        sim.config = dataclasses.replace(sim.config, band_spec=(
+            bdn.make_band_classes(bs, N, counts)))
+        print(f"  relaxed {RELAX_STEPS} steps on one class in "
+              f"{time.perf_counter() - t0:.2f} s (retries "
+              f"{sim.metrics['overflow_retries']}); classes from the relaxed "
+              f"histogram (std {counts.std():.1f}): "
+              f"{sim.config.band_spec.classes}")
+        if sim.config.band_spec.classes is None:
+            ph.failed.append(f"{label}: no classes from the relaxed state")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -842,10 +1101,40 @@ def phase_main(ph, forces: bool, engine: str = "banded"):
               f"{p.gauss_P}; m_max {cfg.m_max}; {peak}")
     else:
         bs = cfg.band_spec
+        one = _band_bytes(bs._replace(classes=None))
         print(f"  final config: band cap {bs.bins.cap} W {bs.window} R "
-              f"{bs.rows} {bs.block_dtype}; far-field cap "
+              f"{bs.rows} {bs.block_dtype}, classes {bs.classes}: A "
+              f"{_band_bytes(bs) / 1e6:.1f} MB ({100 * _band_bytes(bs) / one:.1f}"
+              f" % of the single class's {one / 1e6:.1f} MB); far-field cap "
               f"{cfg.colff_spec.bins.cap} {cfg.colff_spec.weight_dtype}; "
-              f"m_max {cfg.m_max}")
+              f"m_max {cfg.m_max}; class re-measures {sim._class_regrows}; "
+              f"{peak}")
+        # the step's own peak, and with classes the same step on one class
+        peaks = {"classes" if bs.classes else "one class": _step_peak(sim)}
+        if bs.classes:
+            sim.config = dataclasses.replace(cfg, band_spec=bs._replace(
+                classes=None, slab_classes=None))
+            peaks["one class"] = _step_peak(sim)
+            sim.config = cfg
+        print("  one more step's device memory above the live baseline: "
+              + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in peaks.items()))
+        if bs.classes:
+            ab = _ab_classes(sim)
+            print("  alternated 10-step runs, ms/step (host clock): " + "; ".join(
+                f"{k} {' / '.join(f'{x:.3f}' for x in v)} (median "
+                f"{float(np.median(v)):.3f})" for k, v in ab.items())
+                + f"; retries {sim.metrics['overflow_retries'] - retries0}")
+        # build_mv once per step, the matvec m - 1 times (Lanczos)
+        want_mv = sum((m - 1) * c for m, c in hist.items())
+        if retries == 0 and (launches["build_mv_banded"] != timed
+                             or launches["matvec_banded"] != want_mv):
+            ph.failed.append(
+                f"{label}: launches build_mv {launches['build_mv_banded']} "
+                f"(expected {timed}), matvec {launches['matvec_banded']} "
+                f"(expected {want_mv})")
+        print(f"  per step: build_mv {launches['build_mv_banded'] / timed:g}, "
+              f"matvec {launches['matvec_banded'] / timed:g} (m - 1 = "
+              f"{want_mv / timed:g})")
     return sim, launches, ms_step
 
 
@@ -869,6 +1158,75 @@ def phase_mobility(ph, sim, label="main-mobility"):
     if not float((u * F).sum()) > 0:
         ph.failed.append(f"{label}: F.M.F is not positive")
     return launches
+
+
+def phase_classes_mobility(ph, simc):
+    """Simulation.mobility_matvec at the relaxed [main-classes-forces]
+    state with its classes against the same call with one class."""
+    import dataclasses
+
+    import torch
+
+    print("[main-classes-mobility] mobility_matvec with the classes "
+          f"{simc.config.band_spec.classes} vs one class")
+    F = simc.force_fn(simc.state.pos, simc.state.step)
+    cfg = simc.config
+    try:
+        u_c, _ = _counted(ph, "main-classes-mobility",
+                          ("fill_cells", "build_mv_banded"),
+                          lambda: simc.mobility_matvec(F))
+        simc.config = dataclasses.replace(cfg, band_spec=(
+            cfg.band_spec._replace(classes=None, slab_classes=None)))
+        u_1 = simc.mobility_matvec(F)
+    except RuntimeError as e:
+        ph.failed.append(f"main-classes-mobility: {e}")
+        return
+    finally:
+        simc.config = cfg
+    bad = int((u_c != u_1).sum())
+    r, _ = rel_max(u_c, u_1)
+    print(f"  mismatched elements {bad} of {u_c.numel()}")
+    ph.check("mobility with classes vs one class (max rel)", r, 1e-6)
+    if not bool(torch.isfinite(u_c).all()):
+        ph.failed.append("main-classes-mobility: not finite")
+
+
+def phase_classes_run(ph):
+    """The Simulation path with classes from the start: set_integrator on
+    the N = 100k lattice sizes them from its histogram, and the lattice
+    melts past them; run() rewinds, re-measures (at most twice) and
+    finishes."""
+    import torch
+
+    import pse_tpu_torch as pse
+
+    pos, L = make_positions(N, PHI, seed=0)
+    print(f"[classes-run] Simulation N={N} on engine=banded with the "
+          f"lattice's classes, {CLASS_RUN_STEPS} steps (sync_every 25)")
+    sim = pse.Simulation(positions=pos, L=L, dt=DT, sync_every=25,
+                         device="cuda")
+    sim.set_integrator(pse.integrate.PSEv1(T=1.0, seed=SEED, xi=XI,
+                                           error=ERROR),
+                       engine="banded", verbose=False)
+    first = sim.config.band_spec.classes
+    t0 = time.perf_counter()
+    sim.run(CLASS_RUN_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    bs = sim.config.band_spec
+    print(f"  classes at set_integrator {first}; after the run {bs.classes}; "
+          f"overflow retries {sim.metrics['overflow_retries']}, class "
+          f"re-measures {sim._class_regrows}; {wall:.2f} s; "
+          f"{sim.metrics_summary()}")
+    snap = sim.snapshot()
+    if (first is None or sim._class_regrows > 2
+            or snap["step"] != CLASS_RUN_STEPS
+            or not np.isfinite(snap["pos"]).all()):
+        ph.failed.append("classes-run: no classes at the start, more than 2 "
+                         "re-measures, not finished, or not finite")
+    return {"first": first, "final": bs.classes,
+            "retries": sim.metrics["overflow_retries"],
+            "remeasures": sim._class_regrows}
 
 
 def phase_sedimentation(ph):
@@ -1432,6 +1790,116 @@ def phase_timing(sim, results):
           f"({sfac.wxy.dtype} in and out) {results['spread_col']['library_ms']:.4f} ms")
 
 
+def phase_packed_timing(ph, simc, results):
+    """The class-packed build_mv (two RHS) and matvec (one RHS) beside the
+    single-class kernels on the same inputs: the relaxed [main-classes-forces]
+    state at its tilt with its classes; wrapper by CUDA events, kernel alone
+    by CUDA-graph replay, single, packed, packed, single; bounds on the
+    bytes each must move (the matvec reads the live tiles' A rows, the
+    build writes the packed A)."""
+    import torch
+
+    from pse_tpu_torch import kernels
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+
+    config, p = simc.config, simc.config.params
+    bs = config.band_spec
+    bs1 = bs._replace(classes=None, slab_classes=None)
+    tilt = simc.state.tilt_xy
+    print(f"[timing] class-packed kernels, classes {bs.classes}, at the "
+          f"relaxed state (tilt {tilt})")
+    bins, box, j0, nv, zsh, f, f2 = _band_operands(config, simc.state.pos,
+                                                   tilt)
+    perm, inv, ovf = bdn.class_assignment(bs, nv)
+    if bool(ovf):
+        ph.failed.append("packed timing: the classes overflow at the state")
+        return
+    pack = (perm, inv)
+    f12 = torch.cat([f, f2])
+    args = (bins, tilt, bs, config.cheb, p.L, p.ewald_cut, p.ewald_dr, j0,
+            nv, zsh)
+    args1 = (bins, tilt, bs1) + args[3:]
+    blocks, u = bdn.build_mv_banded(*args, f12, p.self_mobility, pack=pack)
+    blocks1, u1 = bdn.build_mv_banded(*args1, f12, p.self_mobility)
+    ph.check("packed vs single-class build_mv u at the main path's state "
+             "(mismatched elements)", int((u != u1).sum()), 0)
+    ph.check("packed vs single-class matvec u at the main path's state "
+             "(mismatched elements)", int((
+                 bdn.matvec_banded(blocks, *args, f, p.self_mobility,
+                                   pack=pack)
+                 != bdn.matvec_banded(blocks1, *args1, f,
+                                      p.self_mobility)).sum()), 0)
+    C, S, R, W = bs.bins.n_cells_total, bs.bins.cap, bs.rows, bs.window
+    T = S // R
+    item = blocks1.element_size()
+    live_rows = int(((nv.long() + R - 1) // R * R).sum())
+    live_bytes = item * 2 * 5 * W * live_rows
+    packed_bytes, one_bytes = _band_bytes(bs), _band_bytes(bs1)
+    pairs = int((blocks1[:, :, 0] != 0).sum())
+    geo = 4 * C * S * 4 + 2 * 5 * C * T * 4
+    rhs = 2 * 3 * C * S * 4
+    ops_build = (20 + 8 * config.cheb.degree) * pairs
+
+    def bound_ms(nbytes, ops_n):
+        return 1e3 * max(nbytes / HBM_BYTES_PER_S, ops_n / PEAK_FLOPS["float32"])
+
+    def mv_kernel(b, a, pk):
+        def launch():
+            uo, rc = bdn._launch_matvec(b, *a[:3], p.L, j0, nv, zsh, f, pk)
+            kernels.check("matvec_banded", rc)
+            return uo
+        return launch
+
+    def bmv_kernel(a, pk):
+        def launch():
+            A, _, rc = bdn._launch_banded(bdn.MODE_BUILD_MV, *a, f12, pk)
+            kernels.check("build_mv_banded", rc)
+            return A
+        return launch
+
+    cases = {
+        "single": (blocks1, args1, None), "packed": (blocks, args, pack)}
+    t = {k: {} for k in cases}
+    for k in ("single", "packed", "packed", "single"):
+        b, a, pk = cases[k]
+        t[k].setdefault("mv", []).append(cuda_ms(
+            lambda: bdn.matvec_banded(b, *a, f, p.self_mobility, pack=pk),
+            20))
+        t[k].setdefault("mv_k", []).append(graph_ms(mv_kernel(b, a, pk), 20))
+        t[k].setdefault("bmv", []).append(cuda_ms(
+            lambda: bdn.build_mv_banded(*a, f12, p.self_mobility, pack=pk),
+            20))
+        t[k].setdefault("bmv_k", []).append(graph_ms(bmv_kernel(a, pk), 20))
+    mv, bmv = results["matvec_banded"], results["build_mv_banded"]
+    mv.update(packed_ms=t["packed"]["mv"], packed_kernel_ms=t["packed"]["mv_k"],
+              packed_single_ms=t["single"]["mv"],
+              packed_single_kernel_ms=t["single"]["mv_k"],
+              packed_bound_ms=bound_ms(live_bytes + geo + rhs, 40 * pairs))
+    bmv.update(packed_ms=t["packed"]["bmv"],
+               packed_kernel_ms=t["packed"]["bmv_k"],
+               packed_single_ms=t["single"]["bmv"],
+               packed_single_kernel_ms=t["single"]["bmv_k"],
+               packed_bound_ms=bound_ms(packed_bytes + geo + 2 * rhs,
+                                        ops_build + 80 * pairs),
+               packed_a_bytes=packed_bytes, single_a_bytes=one_bytes,
+               live_a_bytes=live_bytes)
+    fmt = lambda xs: " / ".join(f"{x:.4f}" for x in xs)   # noqa: E731
+    print(f"  A: packed {packed_bytes / 1e6:.1f} MB, single class "
+          f"{one_bytes / 1e6:.1f} MB, live tiles {live_bytes / 1e6:.1f} MB "
+          f"({live_rows // R} of {C * T} tiles)")
+    print(f"  matvec (one RHS): wrapper packed {fmt(t['packed']['mv'])} ms, "
+          f"single {fmt(t['single']['mv'])} ms; kernel alone packed "
+          f"{fmt(t['packed']['mv_k'])} ms, single {fmt(t['single']['mv_k'])}"
+          f" ms; bound {mv['packed_bound_ms']:.4f} ms (live tiles)")
+    print(f"  build_mv (two RHS): wrapper packed {fmt(t['packed']['bmv'])} "
+          f"ms, single {fmt(t['single']['bmv'])} ms; kernels alone packed "
+          f"{fmt(t['packed']['bmv_k'])} ms, single "
+          f"{fmt(t['single']['bmv_k'])} ms; bound "
+          f"{bmv['packed_bound_ms']:.4f} ms (the packed A written once)")
+    del blocks, blocks1
+    torch.cuda.empty_cache()
+
+
 def phase_blocked_timing(simb, results):
     """The fill at the blocked near field's shape (tilt 0.3), and
     build_pair_blocks and one matvec_cells, by CUDA events, beside the
@@ -1554,6 +2022,7 @@ def main() -> int:
     phase_blocked_oracle(ph)
     phase_gather_small(ph)
     phase_gather_oracle(ph)
+    phase_classes_small(ph)
     sim, _, ms_b = phase_main(ph, forces=False)
     phase_profile(sim, ms_b, "brownian main-path")
     del sim
@@ -1562,6 +2031,13 @@ def main() -> int:
     phase_mobility(ph, simf)
     launches["build_banded_blocks"] = phase_blocks(
         ph, simf)["build_banded_blocks"]
+    sim, _, ms_cb = phase_main(ph, forces=False, classes=True)
+    prof_cb = phase_profile(sim, ms_cb, "brownian main-classes")
+    del sim
+    simc, launches_c, ms_cf = phase_main(ph, forces=True, classes=True)
+    prof_cf = phase_profile(simc, ms_cf, "with-forces main-classes")
+    phase_classes_mobility(ph, simc)
+    class_run = phase_classes_run(ph)
     sim, _, ms_bb = phase_main(ph, forces=False, engine="blocked")
     del sim
     simb, launches_b, ms_bf = phase_main(ph, forces=True, engine="blocked")
@@ -1577,6 +2053,7 @@ def main() -> int:
                for name, _, _ in KERNELS}
     phase_kernels(ph, simf, results, simb, simg)
     phase_timing(simf, results)
+    phase_packed_timing(ph, simc, results)
     phase_blocked_timing(simb, results)
     phase_gather_timing(simg, results)
 
@@ -1592,20 +2069,28 @@ def main() -> int:
             "library_ms": r["library_ms"],
             "launches_blocked": launches_b[name],
             "launches_gather": launches_g[name],
+            "launches_classes": launches_c[name],
             **{k: r[k] for k in ("kernel_ms", "kernel_ms_1rhs",
                                  "bound_full_A_ms", "bin_columns_ms",
                                  "bin_particles_ms", "blocked_ms",
                                  "blocked_kernel_ms", "blocked_bound_ms",
                                  "blocked_plain_ms", "gather_ms",
                                  "gather_kernel_ms", "gather_bound_ms",
-                                 "gather_plain_ms") if k in r},
+                                 "gather_plain_ms", "packed_ms",
+                                 "packed_kernel_ms", "packed_single_ms",
+                                 "packed_single_kernel_ms", "packed_bound_ms",
+                                 "packed_a_bytes", "single_a_bytes",
+                                 "live_a_bytes") if k in r},
         })
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
               f"launches {launches[name]}")
     print(f"blocked near field (not kernels): {json.dumps(results['blocked'])}")
     print(f"gather engine (not kernels): {json.dumps(results['gather'])}")
-    for name, ms, prof in (("gather", ms_gb, prof_gb),
+    print(f"classes-run: {json.dumps(class_run)}")
+    for name, ms, prof in (("main-classes", ms_cb, prof_cb),
+                           ("main-classes-forces", ms_cf, prof_cf),
+                           ("gather", ms_gb, prof_gb),
                            ("gather-forces", ms_gf, prof_gf)):
         print(f"{name}: {ms:.3f} ms/step, {1e3 * N / ms:.6g} particle-steps/s"
               + ("" if prof is None else
@@ -1614,6 +2099,8 @@ def main() -> int:
                  "launches per step"))
     print(f"total {time.perf_counter() - t_start:.1f} s; main paths "
           f"{ms_b:.3f} ms/step (brownian), {ms_f:.3f} ms/step (with forces); "
+          f"with classes {ms_cb:.3f} ms/step (brownian), {ms_cf:.3f} ms/step "
+          f"(with forces); "
           f"blocked {ms_bb:.3f} ms/step (brownian), {ms_bf:.3f} ms/step "
           f"(with forces); gather {ms_gb:.3f} ms/step (brownian), "
           f"{ms_gf:.3f} ms/step (with forces)")

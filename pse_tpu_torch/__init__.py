@@ -2,8 +2,8 @@
 Brownian dynamics) for one NVIDIA H100.
 
 It runs the step of the blocked engine (the default: 3-D cell pair blocks
-+ z-column far field), of the banded engine (z-sorted column near field)
-and of the gather engine (a neighbor list, the table-interpolated near
++ z-column far field), of the banded engine (z-sorted column near field,
+its A packed by occupancy class on the card) and of the gather engine (a neighbor list, the table-interpolated near
 field and a tap far field, where the box is too small to block), thermal
 or athermal, with or without external forces
 (``Simulation(force_fn=...)``), on all particles or a ``PSEv1.group``

@@ -152,6 +152,8 @@ def operands(pos, n, L, tilt, window=None, dtype=None):
                                  device="cuda",
                                  block_dtype=dtype or "bfloat16")
     bs = cfg.band_spec
+    if "classes" in bs._fields:          # the kernels' single-class layout
+        bs = bs._replace(classes=None, slab_classes=None)
     if window is not None:
         bs = bs._replace(window=window)
     box = make_box(p.L, tilt)

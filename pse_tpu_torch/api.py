@@ -35,9 +35,11 @@ import torch
 from . import shear as shear_function
 from .box import Box, make_box
 from .integrator import (
-    OVF_BAND, OVF_FF, OVF_NBR, OVF_NF, State, StepConfig, grow_config,
-    make_config, make_state, mobility, state_from_arrays, step as _step,
+    OVF_BAND, OVF_CLASS, OVF_FF, OVF_NBR, OVF_NF, State, StepConfig,
+    _size_slab_classes, grow_config, make_config, make_state, mobility,
+    state_from_arrays, step as _step,
 )
+from .ops import banded_nearfield as bdn
 from .params import make_params
 
 
@@ -135,6 +137,7 @@ class Simulation:
                 np.asarray(images, np.int32), device=self.device))
         self.step_timing = []
         self.metrics = {"m_lanczos_hist": {}, "overflow_retries": 0, "steps": 0}
+        self._class_regrows = 0
 
     # -- setup ------------------------------------------------------------
 
@@ -175,6 +178,9 @@ class Simulation:
             # "stencil": rcut/2 cells with a 125-stencil; only the gather
             # engine enumerates neighbours
             nbr_subdiv=2 if method.nlist_type.upper() == "STENCIL" else 1,
+            # the measured column occupancy sizes the banded engine's
+            # occupancy classes
+            positions=self._hydro_positions(self.state),
             device=self.device,
         )
         self._built_max_strain = float(method.max_strain)
@@ -233,6 +239,24 @@ class Simulation:
         )
         return self
 
+    def _hydro_positions(self, state: State) -> np.ndarray:
+        """The hydrodynamic system's positions on the host (a group's
+        rows)."""
+        pos = state.pos if self._group is None else state.pos[self._group]
+        return pos.cpu().numpy()
+
+    def _remeasure_classes(self, snapshot: State):
+        """Occupancy classes sized anew from the snapshot's positions at its
+        tilt, after grow_config dropped them on OVF_CLASS."""
+        pos = self._hydro_positions(snapshot)
+        cfg = self.config
+        bs = cfg.band_spec
+        counts = bdn.measure_col_counts(bs, pos, cfg.params.L,
+                                        tilt=snapshot.tilt_xy)
+        bs = bdn.make_band_classes(bs, pos.shape[0], counts)
+        bs = _size_slab_classes(bs, cfg.shard_slabs, pos.shape[0], counts)
+        self.config = dataclasses.replace(cfg, band_spec=bs)
+
     # -- one step ---------------------------------------------------------
 
     def _advance(self, state: State):
@@ -286,8 +310,15 @@ class Simulation:
                     )
                 # grows what the mask names: OVF_NBR the neighbor list,
                 # OVF_NF / OVF_BAND / OVF_FF the cell caps and the band,
-                # OVF_LANCZOS m_max
+                # OVF_LANCZOS m_max; OVF_CLASS drops the occupancy classes
                 self.config = grow_config(self.config, flags=flags)
+                if (flags & OVF_CLASS and self.config.band_spec is not None
+                        and self._class_regrows < 2):
+                    # the density drifted past the classes sized at
+                    # set_integrator: size them from the positions the
+                    # chunk restarts from (after two, keep one class)
+                    self._class_regrows += 1
+                    self._remeasure_classes(snapshot)
                 self.state = snapshot
                 self.metrics["overflow_retries"] += 1
                 continue
@@ -331,7 +362,8 @@ class Simulation:
             specs = ((OVF_NF, "band_spec" if cfg.engine == "banded"
                       else "nf_spec"), (OVF_BAND, "band_spec window"),
                      (OVF_FF, "colff_spec" if cfg.colff_spec is not None
-                      else "ff_spec"), (OVF_NBR, "nbr_spec"))
+                      else "ff_spec"), (OVF_NBR, "nbr_spec"),
+                     (OVF_CLASS, "band_spec classes"))
             raise RuntimeError(
                 "capacity overflow in mobility ("
                 + ", ".join(name for bit, name in specs if flags & bit)

@@ -4,9 +4,9 @@ PyTorch counterpart of ``pse_tpu/box.py``: a centered orthorhombic box with
 an ``xy`` tilt factor (linear shear, gradient along y, flow along x),
 fractional coordinates, minimum image and image-tracked wrapping.
 
-``Box`` holds host scalars, rounded to float32 once, so that every tensor
-expression below computes in float32 exactly as the JAX package does with
-its float32 box arrays.
+``Box`` holds host scalars, rounded to float32 once (``make_box``'s
+default dtype), so that every tensor expression below computes in float32
+exactly as the JAX package does with its float32 box arrays.
 """
 
 from __future__ import annotations
@@ -19,6 +19,13 @@ import torch
 
 def _f32(x) -> float:
     return float(np.float32(x))
+
+
+def _rounded(x, dtype) -> float:
+    """``x`` rounded to ``dtype`` (a torch or numpy float type)."""
+    if isinstance(dtype, torch.dtype):
+        dtype = torch.empty((), dtype=dtype).numpy().dtype
+    return float(np.asarray(x, dtype=dtype))
 
 
 class Box(NamedTuple):
@@ -35,12 +42,26 @@ class Box(NamedTuple):
     def lo(self) -> tuple:
         return tuple(-x / 2.0 for x in self.L)
 
+    @property
+    def hi(self) -> tuple:
+        return tuple(x / 2.0 for x in self.L)
 
-def make_box(L, tilt_xy=0.0) -> Box:
-    """Create a Box. ``L`` may be a scalar (cubic) or length-3 sequence."""
+    @property
+    def volume(self) -> float:
+        """Lx Ly Lz (the product of the stored lengths, in float64)."""
+        return self.L[0] * self.L[1] * self.L[2]
+
+    def with_tilt(self, tilt_xy) -> "Box":
+        """The same lengths at another tilt, rounded to float32."""
+        return Box(self.L, _f32(tilt_xy))
+
+
+def make_box(L, tilt_xy=0.0, dtype=torch.float32) -> Box:
+    """Create a Box. ``L`` may be a scalar (cubic) or length-3 sequence;
+    lengths and tilt are rounded to ``dtype``."""
     if np.isscalar(L):
         L = (L, L, L)
-    return Box(tuple(_f32(x) for x in L), _f32(tilt_xy))
+    return Box(tuple(_rounded(x, dtype) for x in L), _rounded(tilt_xy, dtype))
 
 
 def make_fraction(box: Box, pos: torch.Tensor) -> torch.Tensor:

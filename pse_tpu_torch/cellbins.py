@@ -17,6 +17,7 @@ the overflow flag, the binned values) is one launch of the fill kernel
 from __future__ import annotations
 
 import functools
+import math
 from typing import NamedTuple
 
 import torch
@@ -241,6 +242,14 @@ def bin_columns(pos: torch.Tensor, box: Box, spec: BinSpec, values=None):
                         spec.cap, values)
 
 
+def choose_cap(mean_occupancy: float, multiple: int = 8,
+               slack_sigmas: float = 5.0) -> int:
+    """Capacity covering Poisson occupancy tails, rounded to a multiple."""
+    mu = max(mean_occupancy, 1e-3)
+    cap = mu + slack_sigmas * math.sqrt(mu) + 4.0
+    return int(math.ceil(cap / multiple)) * multiple
+
+
 def _slots(bins: CellBins, spec: BinSpec):
     return (bins.cell_of.long() * spec.cap
             + torch.clamp(bins.rank_of.long(), max=spec.cap - 1))
@@ -257,6 +266,22 @@ def vec_to_cells(bins: CellBins, spec: BinSpec, values: torch.Tensor):
 def vec_from_cells(bins: CellBins, spec: BinSpec, cells: torch.Tensor):
     """(3, C, cap) -> (N, 3) in one gather."""
     return cells.reshape(3, -1).t()[_slots(bins, spec)]
+
+
+def to_cells(bins: CellBins, spec: BinSpec, values: torch.Tensor,
+             fill=0.0) -> torch.Tensor:
+    """Per-particle values (N,) -> (C, cap) cell layout, ``fill`` in the
+    empty slots (a particle past its cell's cap lands on the last slot)."""
+    out = torch.full((spec.n_cells_total * spec.cap,), fill,
+                     dtype=values.dtype, device=values.device)
+    out[_slots(bins, spec)] = values
+    return out.reshape(spec.n_cells_total, spec.cap)
+
+
+def from_cells(bins: CellBins, spec: BinSpec,
+               cell_values: torch.Tensor) -> torch.Tensor:
+    """(C, cap) cell layout -> per-particle values (N,)."""
+    return cell_values.reshape(-1)[_slots(bins, spec)]
 
 
 def roll_cells(arr: torch.Tensor, spec: BinSpec, offset) -> torch.Tensor:

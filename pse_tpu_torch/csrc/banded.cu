@@ -38,6 +38,20 @@
 //     the transposed ones onto their target columns
 //     (banded_nearfield._finish_u).
 //
+// Occupancy classes (spec.classes, the TPU kernels' `pack=`): A is stored
+// per class in one allocation, class k as (c_k, 2, t_k R, 5W) for the packed
+// columns perm[off_k, off_k + c_k), the tiles at or past t_k not stored.  One
+// launch covers every class: the matvec's grid walks (packed column p,
+// offset), the build's (offset, packed column p, tile t < t_k(p)), each
+// block finding its class in a table of at most MAXK entries held in the
+// kernel's parameters, and each block reads its own rows and writes its u
+// planes at the actual column perm[p], so no gather restores the order.
+// Without classes (a null perm) the table is one class of T = S / R tiles
+// and perm the identity; the matvec is then instantiated with PK = false,
+// the single-class code with the packed indirection compiled out (with it,
+// the single-class matvec timed 14 % slower on the H100, PERF.md); the
+// build reads the one-class table (it timed the same).
+//
 // What bounds them on the H100: A.  At bench scale (C = 216, S = 576, R =
 // 32, W = 128, bf16) A is 318.5 MB, >= 95 us at 3.35 TB/s, written by the
 // build and read by the matvec.  The arithmetic is of the same order on the
@@ -94,6 +108,7 @@ namespace {
 constexpr int N_HALF = 5;
 constexpr int THREADS = 256;
 constexpr int LPT = 8;  // window lanes per thread
+constexpr int MAXK = 4;  // occupancy classes at most (3 below the cap + 1)
 
 __constant__ int OX[N_HALF] = {0, 0, 1, 1, 1};
 __constant__ int OY[N_HALF] = {0, 1, -1, 0, 1};
@@ -110,9 +125,68 @@ struct Band {
   float mid, cut2, dr2;
   int ncx, ncy, S, R, W, T, G;
   float Lx, Ly, Lz, tilt;
-  void* A;    // (C, 2, S, 5W) block dtype: (imrr, bco/d^2)
+  void* A;    // (C, 2, S, 5W) block dtype: (imrr, bco/d^2), or by class
   float* uo;  // (C, 9, 3 NRHS, S)
+  // occupancy classes in packed (need-descending) order
+  const int* perm;        // (C,) packed -> actual column, or null (identity)
+  int K;                  // number of classes (1 without packing)
+  int ct[MAXK];           // tiles stored per column of class k
+  int coff[MAXK];         // first packed column of class k
+  int ctl[MAXK];          // first entry of class k in a tile list of offset
+  long long cbase[MAXK];  // A element offset of class k
+  int TT;                 // stored tiles per offset, sum_k c_k ct[k]
 };
+
+// Fills the class table: n_classes (tiles, columns) pairs in packed order,
+// or none for one class of all T tiles (entries past K are never read).
+// False if they do not fit.
+bool set_classes(Band& b, const int* perm, int n_classes, const int* tiles,
+                 const int* cols) {
+  const int C = b.ncx * b.ncy;
+  b.perm = perm;
+  b.K = n_classes > 0 ? n_classes : 1;
+  if (b.K > MAXK || (n_classes > 0 && perm == nullptr)) return false;
+  long long base = 0;
+  int off = 0, tl = 0;
+  for (int k = 0; k < b.K; ++k) {
+    const int t = n_classes > 0 ? tiles[k] : b.T;
+    const int c = n_classes > 0 ? cols[k] : C;
+    if (t < 1 || t > b.T || c < 1) return false;
+    b.ct[k] = t;
+    b.coff[k] = off;
+    b.ctl[k] = tl;
+    b.cbase[k] = base;
+    off += c;
+    tl += c * t;
+    base += (long long)c * 2 * t * b.R * N_HALF * b.W;
+  }
+  b.TT = tl;
+  return off == C;
+}
+
+// Packed column p: its actual column, its class's stored tiles and the A
+// element offset of its (2, tiles R, 5W) block.
+struct Packed {
+  int c, tk;
+  long long base;
+};
+
+__device__ __forceinline__ Packed packed_column(const Band& b, int p) {
+  int tk = b.ct[0], off = b.coff[0];
+  long long base = b.cbase[0];
+#pragma unroll
+  for (int k = 1; k < MAXK; ++k)
+    if (k < b.K && p >= b.coff[k]) {
+      tk = b.ct[k];
+      off = b.coff[k];
+      base = b.cbase[k];
+    }
+  Packed q;
+  q.c = b.perm ? b.perm[p] : p;
+  q.tk = tk;
+  q.base = base + (long long)(p - off) * 2 * tk * b.R * (N_HALF * b.W);
+  return q;
+}
 
 // LPT consecutive coefficients of one A row (16-byte aligned)
 template <typename AT>
@@ -164,18 +238,18 @@ __host__ __device__ __forceinline__ int group_floats(int nf, int G) {
 }
 
 // Shared memory floats: a pass's own (x, y, z, 0) and NRHS (f, 0) rows as
-// float4, the rank accumulator, the P tile groups' scratch, and the
-// per-tile j0 and zsh.
-size_t smem_floats(int nrhs, int S, int W, int T, int G, int R) {
+// float4, the rank accumulator, the P tile groups' scratch, the per-tile
+// j0 and zsh, and with classes the column's first A row and stored tiles.
+size_t smem_floats(int nrhs, int S, int W, int T, int G, int R, bool pk) {
   const int nf = 3 * nrhs;
   return 4 * (size_t)(1 + nrhs) * pass_rows(G, T, R) +
          (size_t)nf * (S + W) + (size_t)(THREADS / G) * group_floats(nf, G) +
-         2 * (size_t)T;
+         2 * (size_t)T + (pk ? 2 : 0);
 }
 
-template <int NRHS, typename AT, bool TR>
+template <int NRHS, typename AT, bool TR, bool PK>
 __device__ __forceinline__ void column_block(const Band& b, float* smem,
-                                             const int c, const int h) {
+                                             const int pc, const int h) {
   constexpr int NF = 3 * NRHS;
   constexpr int RG = sizeof(AT) == 2 ? 4 : 2;  // rows per load group
   const int S = b.S, W = b.W, R = b.R, T = b.T, G = b.G;
@@ -185,12 +259,18 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
   const long long CS = (long long)C * S;
   const int tid = threadIdx.x;
 
+  // packed column pc is column c (pc itself without classes)
+  const Packed col = PK ? packed_column(b, pc) : Packed{pc, T, 0};
+  const int c = col.c;
   const int cx = c / b.ncy, cy = c % b.ncy;
   const int ox = OX[h], oy = OY[h];
   const int nbr =
       ((cx + ox + b.ncx) % b.ncx) * b.ncy + (cy + oy + b.ncy) % b.ncy;
   const int nv = b.n_valid[nbr];
-  const int Tv = (b.n_valid[c] + R - 1) / R;  // tiles with occupied rows
+  // tiles with occupied rows, within the stored ones (a column past its
+  // class's tiles is flagged by class_assignment)
+  const int Tv = PK ? min((b.n_valid[c] + R - 1) / R, col.tk)
+                    : (b.n_valid[c] + R - 1) / R;
   const float wx = (cx + ox >= b.ncx) ? 1.f : ((cx + ox < 0) ? -1.f : 0.f);
   const float wy = (cy + oy >= b.ncy) ? 1.f : ((cy + oy < 0) ? -1.f : 0.f);
   const float sy = wy * b.Ly;
@@ -203,6 +283,9 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
   float* scr = acc + NF * SW;                                // P x WS
   int* tj0 = reinterpret_cast<int*>(scr + P * WS);           // T
   float* tzs = reinterpret_cast<float*>(tj0 + T);            // T
+  // with classes: the column's first A row and its stored tiles, read from
+  // here per tile so that no register holds them across the tile loop
+  int* tcol = reinterpret_cast<int*>(tzs + T);               // 2
 
   // the own rows of the pass of tiles from t0
   auto stage_own = [&](int t0) {
@@ -222,6 +305,10 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
     const long long wt = ((long long)h * C + c) * T + t;
     tj0[t] = b.j0[wt];
     tzs[t] = b.zsh[wt];
+  }
+  if (PK && tid == 0) {
+    tcol[0] = (int)(col.base / ((long long)N_HALF * W));
+    tcol[1] = col.tk;
   }
   if (TR)
     for (int s = tid; s < NF * SW; s += THREADS) acc[s] = 0.f;
@@ -249,9 +336,11 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
     if (t < Tv) {  // the same for the G threads of a tile
       const int j0 = tj0[t];
       const float zs = tzs[t];
-      const AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
-                       (long long)h * W + w0;
-      const AT* a_bq = a_im + (long long)S * a_row;
+      const AT* a_im =
+          A + ((PK ? (long long)tcol[0] : (long long)c * 2 * S) +
+               (long long)t * R) * a_row +
+          (long long)h * W + w0;
+      const AT* a_bq = a_im + (long long)(PK ? tcol[1] * R : S) * a_row;
       auto load_rows = [&](Coef8<AT>* im, Coef8<AT>* bq, int i0) {
 #pragma unroll
         for (int rr = 0; rr < RG; ++rr) {
@@ -409,27 +498,27 @@ __device__ __forceinline__ void column_block(const Band& b, float* smem,
   }
 }
 
-template <int NRHS, typename AT>
+template <int NRHS, typename AT, bool PK>
 __global__ void __launch_bounds__(THREADS, NRHS == 1 ? 2 : 1)
     matvec_kernel(Band b) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   // the blocks with a transposed half first, the lighter h = 0 ones last,
-  // so that they fill the last wave
+  // so that they fill the last wave; p is a packed column
   const int C = b.ncx * b.ncy;
   const int item = blockIdx.x + C * blockIdx.y;
-  const int c = item % C, h = item < (N_HALF - 1) * C ? 1 + item / C : 0;
+  const int p = item % C, h = item < (N_HALF - 1) * C ? 1 + item / C : 0;
   if (h > 0)
-    column_block<NRHS, AT, true>(b, smem, c, h);
+    column_block<NRHS, AT, true, PK>(b, smem, p, h);
   else
-    column_block<NRHS, AT, false>(b, smem, c, h);
+    column_block<NRHS, AT, false, PK>(b, smem, p, h);
 }
 
-template <int NRHS, typename AT>
+template <int NRHS, typename AT, bool PK>
 cudaError_t launch(const Band& b, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * smem_floats(NRHS, b.S, b.W, b.T, b.G, b.R);
-  auto kernel = matvec_kernel<NRHS, AT>;
+      sizeof(float) * smem_floats(NRHS, b.S, b.W, b.T, b.G, b.R, PK);
+  auto kernel = matvec_kernel<NRHS, AT, PK>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   dim3 grid(b.ncx * b.ncy, N_HALF);
@@ -439,8 +528,11 @@ cudaError_t launch(const Band& b, cudaStream_t stream) {
 
 template <typename AT>
 cudaError_t dispatch(int nrhs, const Band& b, cudaStream_t stream) {
-  if (nrhs == 1) return launch<1, AT>(b, stream);
-  if (nrhs == 2) return launch<2, AT>(b, stream);
+  const bool pk = b.perm != nullptr;
+  if (nrhs == 1)
+    return pk ? launch<1, AT, true>(b, stream) : launch<1, AT, false>(b, stream);
+  if (nrhs == 2)
+    return pk ? launch<2, AT, true>(b, stream) : launch<2, AT, false>(b, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -490,9 +582,9 @@ __host__ __device__ __forceinline__ int build_floats(int G, int a_bytes) {
 }
 
 // The build over a grid of tiles: tile group p of block x takes tile k = x P
-// + p of the (offset, column, tile) list, occupied or not (an empty tile's
-// rows are stored as zeros from its empty staging), so the blocks are of
-// one size and the last wave is short.
+// + p of the (offset, packed column, stored tile) list, occupied or not (an
+// empty tile's rows are stored as zeros from its empty staging), so the
+// blocks are of one size and the last wave is short.
 template <typename AT, int NC>
 __global__ void __launch_bounds__(THREADS, 2) build_tiles(Band b) {
   constexpr int RG = sizeof(AT) == 2 ? 4 : 2;  // rows per batch
@@ -511,12 +603,24 @@ __global__ void __launch_bounds__(THREADS, 2) build_tiles(Band b) {
   float* grp = smem + CF + 4 * P * R + p * WS;                 // WS a group
   for (int s = tid; s < 4 + 4 * nc; s += THREADS) cf[s] = b.cheb[s];
 
-  // this group's tile: offset h, column c, tile t, the tiles of one (c, h)
-  // consecutive; live if it holds an occupied row
+  // this group's tile: offset h, packed column pc (column c), tile t, the
+  // stored tiles of one (pc, h) consecutive; live if it holds an occupied row
   const int k = blockIdx.x * P + p;
-  const bool tile = k < N_HALF * C * T;
+  const bool tile = k < N_HALF * b.TT;
   const int kk = tile ? k : 0;
-  const int h = kk / (C * T), c = (kk / T) % C, t = kk % T;
+  const int h = kk / b.TT, ent = kk % b.TT;
+  int tl = b.ctl[0], tk = b.ct[0], off = b.coff[0];
+  long long base = b.cbase[0];
+#pragma unroll
+  for (int q = 1; q < MAXK; ++q)
+    if (q < b.K && ent >= b.ctl[q]) {
+      tl = b.ctl[q];
+      tk = b.ct[q];
+      off = b.coff[q];
+      base = b.cbase[q];
+    }
+  const int pc = off + (ent - tl) / tk, t = (ent - tl) % tk;
+  const int c = b.perm ? b.perm[pc] : pc;
   const int cx = c / b.ncy, cy = c % b.ncy;
   const int ox = OX[h], oy = OY[h];
   const int nbr =
@@ -571,9 +675,9 @@ __global__ void __launch_bounds__(THREADS, 2) build_tiles(Band b) {
   __syncwarp();  // the scratch holds the queue from here
   AT* A = reinterpret_cast<AT*>(b.A);
   const long long a_row = (long long)N_HALF * W;
-  AT* a_im = A + ((long long)c * 2 * S + (long long)t * R) * a_row +
+  AT* a_im = A + base + ((long long)(pc - off) * 2 * tk + t) * R * a_row +
              (long long)h * W + w0;
-  AT* a_bq = a_im + (long long)S * a_row;
+  AT* a_bq = a_im + (long long)tk * R * a_row;
   // the queue: each valid pair's d^2 and its destination, the lane index in
   // the staged planes of the RG rows
   float2* queue = reinterpret_cast<float2*>(grp);
@@ -678,7 +782,7 @@ cudaError_t launch_build(const Band& b, cudaStream_t stream) {
   auto kernel = build_tiles<AT, NC>;
   cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  const int tiles = N_HALF * b.ncx * b.ncy * b.T;
+  const int tiles = N_HALF * b.TT;
   kernel<<<(tiles + P - 1) / P, THREADS, smem, stream>>>(b);
   return cudaGetLastError();
 }
@@ -698,18 +802,28 @@ int group_threads(int W) {
 
 }  // namespace
 
+// perm, n_classes, class_tiles, class_cols: the occupancy classes in packed
+// order (class_tiles and class_cols on the host, perm on the device), or
+// null, 0, null, null for one class.
 extern "C" int pse_banded_matvec(int nrhs, const float* px, const float* py,
                                  const float* pz, const float* f,
                                  const int* j0, const float* zsh,
                                  const int* n_valid, int ncx, int ncy, int S,
                                  int R, int W, float Lx, float Ly, float Lz,
                                  float tilt, int a_bf16, const void* A,
-                                 float* uo, cudaStream_t stream) {
+                                 float* uo, const int* perm, int n_classes,
+                                 const int* class_tiles, const int* class_cols,
+                                 cudaStream_t stream) {
   if (!shapes_ok(S, R, W, A)) return (int)cudaErrorInvalidValue;
-  const Band b{px,  py,  pz,  nullptr, f,      j0,  zsh,
-               n_valid, nullptr, 0, 0.f, 0.f, 0.f, ncx,
-               ncy, S,   R,   W,       S / R,  group_threads(W),
-               Lx,  Ly,  Lz,  tilt,    const_cast<void*>(A), uo};
+  Band b{};
+  b.px = px, b.py = py, b.pz = pz, b.f = f, b.j0 = j0, b.zsh = zsh;
+  b.n_valid = n_valid;
+  b.ncx = ncx, b.ncy = ncy, b.S = S, b.R = R, b.W = W, b.T = S / R;
+  b.G = group_threads(W);
+  b.Lx = Lx, b.Ly = Ly, b.Lz = Lz, b.tilt = tilt;
+  b.A = const_cast<void*>(A), b.uo = uo;
+  if (!set_classes(b, perm, n_classes, class_tiles, class_cols))
+    return (int)cudaErrorInvalidValue;
   const cudaError_t e = a_bf16 ? dispatch<__nv_bfloat16>(nrhs, b, stream)
                                : dispatch<float>(nrhs, b, stream);
   return (int)e;
@@ -722,11 +836,19 @@ extern "C" int pse_banded_build(const float* px, const float* py,
                                 int n_coef, float mid, float cut2, float dr2,
                                 int ncx, int ncy, int S, int R, int W,
                                 float Lx, float Ly, float Lz, float tilt,
-                                int a_bf16, void* A, cudaStream_t stream) {
+                                int a_bf16, void* A, const int* perm,
+                                int n_classes, const int* class_tiles,
+                                const int* class_cols, cudaStream_t stream) {
   if (!shapes_ok(S, R, W, A)) return (int)cudaErrorInvalidValue;
-  const Band b{px,   py,   pz,  mask, nullptr, j0,  zsh, n_valid, cheb,
-               n_coef, mid, cut2, dr2, ncx,  ncy,  S,   R,   W,
-               S / R, group_threads(W), Lx, Ly, Lz,   tilt, A,   nullptr};
+  Band b{};
+  b.px = px, b.py = py, b.pz = pz, b.mask = mask, b.j0 = j0, b.zsh = zsh;
+  b.n_valid = n_valid, b.cheb = cheb, b.n_coef = n_coef;
+  b.mid = mid, b.cut2 = cut2, b.dr2 = dr2;
+  b.ncx = ncx, b.ncy = ncy, b.S = S, b.R = R, b.W = W, b.T = S / R;
+  b.G = group_threads(W);
+  b.Lx = Lx, b.Ly = Ly, b.Lz = Lz, b.tilt = tilt, b.A = A;
+  if (!set_classes(b, perm, n_classes, class_tiles, class_cols))
+    return (int)cudaErrorInvalidValue;
   // the main path's degree-8 fits unrolled, any other degree through the
   // general recurrence
   const cudaError_t e =

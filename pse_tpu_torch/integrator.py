@@ -1,8 +1,9 @@
 """The PSE Brownian-dynamics step and U = M F on the banded, blocked and
 gather engines.
 
-PyTorch counterpart of ``pse_tpu/integrator.py``: ``engine="banded"`` (one
-occupancy class), ``engine="blocked"`` (the default) and
+PyTorch counterpart of ``pse_tpu/integrator.py``: ``engine="banded"``
+(with its occupancy classes), ``engine="blocked"`` (``make_config``'s
+default) and
 ``engine="gather"`` (the neighbor-list engine, make_config's last
 fallback), thermal or athermal, with or without external forces.  One
 step:
@@ -55,6 +56,7 @@ OVF_BAND = 2      # banded window width
 OVF_FF = 4        # far-field cell capacity
 OVF_LANCZOS = 8   # Lanczos m_max hit unconverged
 OVF_NBR = 16      # gather-engine neighbor capacity
+OVF_CLASS = 32    # banded occupancy-class capacities (falls back to 1 class)
 
 ENGINES = ("banded", "blocked", "gather")
 
@@ -109,27 +111,30 @@ def state_from_arrays(d, device="cuda") -> State:
 
 @dataclasses.dataclass(frozen=True)
 class StepConfig:
-    """Static configuration of the step.  ``engine`` is "banded" (with
-    ``band_spec``), "blocked" (with ``nf_spec``) or "gather" (with
-    ``nbr_spec`` only, which every config carries); ``colff_spec`` is the
-    z-column far field and ``ff_spec`` the stored-weight far field the
-    banded and blocked steps take where ``colff_spec`` is None.
-    ``thermal`` runs the Brownian branches, ``has_forces`` the
-    deterministic M F path."""
+    """Static configuration of the step, with the JAX package's fields,
+    defaults and order, and ``device`` last.  ``engine`` is "gather" (the
+    default, with ``nbr_spec`` only, which every config carries),
+    "banded" (with ``band_spec``) or "blocked" (with ``nf_spec``);
+    ``colff_spec`` is the z-column far field and ``ff_spec`` the
+    stored-weight far field the banded and blocked steps take where
+    ``colff_spec`` is None.  ``thermal`` runs the Brownian branches,
+    ``has_forces`` the deterministic M F path; ``shard_slabs`` is the halo
+    slab count the config was built for."""
 
     params: PSEParams
-    nbr_spec: Optional[NeighborSpec] = None   # gather-engine neighbor shapes
-    engine: str = "blocked"
-    cheb: Optional[ChebPair] = None
-    band_spec: Optional[bdn.BandSpec] = None
+    nbr_spec: NeighborSpec                 # gather-engine neighbor shapes
+    thermal: bool = True
+    m_max: int = 100                       # Lanczos cap (Brownian.cu:397)
+    seed: int = 0
+    engine: str = "gather"
     nf_spec: Optional[bnf.NfSpec] = None
     ff_spec: Optional[bff.FfSpec] = None
-    colff_spec: Optional[cff.ColFfSpec] = None
-    m_max: int = 24
-    seed: int = 0
-    device: str = "cuda"
-    thermal: bool = True
+    cheb: Optional[ChebPair] = None
     has_forces: bool = True
+    band_spec: Optional[bdn.BandSpec] = None
+    colff_spec: Optional[cff.ColFfSpec] = None
+    shard_slabs: int = 1
+    device: str = "cuda"
 
     def __post_init__(self):
         if not self.thermal and not self.has_forces:
@@ -137,12 +142,46 @@ class StepConfig:
                 "StepConfig with thermal=False requires has_forces=True "
                 "(an athermal zero-force step is M·0, like the reference)"
             )
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, not "
+                             f"{self.engine!r}")
+        if self.engine == "gather":
+            return
+        missing = [name for name, v in (
+            ("band_spec" if self.engine == "banded" else "nf_spec",
+             self.band_spec if self.engine == "banded" else self.nf_spec),
+            ("cheb", self.cheb),
+            ("colff_spec or ff_spec", self.colff_spec or self.ff_spec))
+            if v is None]
+        if missing:
+            raise ValueError(
+                f"StepConfig(engine={self.engine!r}) needs "
+                f"{', '.join(missing)} (integrator.make_config builds them)")
 
 
 def _cheb_tol(block_dtype: str) -> float:
     """Pair-function fit tolerance matched to the block dtype (bf16 blocks
     round every entry at ~4e-3 relative anyway)."""
     return 3e-5 if block_dtype == "bfloat16" else 1e-6
+
+
+def _size_slab_classes(band_spec, shard_slabs, n_particles, counts):
+    """``band_spec`` with its per-shard occupancy classes for the halo
+    engine: sized on the extended local slab grid ((ncx / D + 2) ncy
+    columns) to cover the worst slab, from the global measured histogram
+    ``counts`` or, for None, the Poisson model.  Computed for one slab
+    too, as in the JAX package."""
+    ncx, ncy, _ = band_spec.bins.n_cells
+    nxl = ncx // shard_slabs
+    loc = band_spec._replace(
+        bins=band_spec.bins._replace(n_cells=(nxl + 2, ncy, 1)),
+        classes=None,              # the one-device classes are global-grid
+    )
+    slab_counts = (None if counts is None else
+                   bdn.make_slab_counts(band_spec, shard_slabs, counts))
+    n_loc = int(round(n_particles * (nxl + 2) / ncx))
+    loc = bdn.make_band_classes(loc, n_loc, slab_counts)
+    return band_spec._replace(slab_classes=loc.classes)
 
 
 def make_config(
@@ -168,10 +207,10 @@ def make_config(
 
     ``max_neighbors`` and ``nbr_subdiv`` size the gather engine's neighbor
     list (``nbr_spec``, built for every engine as in the JAX package).
-    Raises NotImplementedError for several halo slabs, which the port does
-    not have.  ``positions`` sizes the occupancy classes, which are not
-    ported: it is accepted and unused."""
-    del positions
+    ``positions``: the (N, 3) initial configuration on the host, whose
+    measured column histogram sizes the banded engine's occupancy classes
+    (without it, a Poisson model does).  Raises NotImplementedError for
+    several halo slabs, which the port does not have yet."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, not {engine!r}")
     if shard_slabs != 1:
@@ -199,6 +238,14 @@ def make_config(
             n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
             block_dtype=block_dtype,
         )
+        if band_spec is not None:
+            counts = None
+            if positions is not None:
+                counts = bdn.measure_col_counts(band_spec, positions,
+                                                params.L)
+            band_spec = bdn.make_band_classes(band_spec, n_particles, counts)
+            band_spec = _size_slab_classes(band_spec, shard_slabs,
+                                           n_particles, counts)
         if ff_spec is None or band_spec is None:
             engine, band_spec = "blocked", None   # too small to band
     if engine == "blocked":
@@ -221,11 +268,11 @@ def make_config(
         colff_spec = cff.make_col_spec(params, n_particles, ff_weight_dtype,
                                        device=device)
     return StepConfig(
-        params=params, nbr_spec=nbr_spec, engine=engine, cheb=cheb,
-        band_spec=band_spec, nf_spec=nf_spec, ff_spec=ff_spec,
-        colff_spec=colff_spec, m_max=m_max, seed=seed,
-        device=str(torch.device(device)), thermal=bool(thermal),
-        has_forces=bool(has_forces),
+        params=params, nbr_spec=nbr_spec, thermal=bool(thermal), m_max=m_max,
+        seed=seed, engine=engine, nf_spec=nf_spec, ff_spec=ff_spec,
+        cheb=cheb, has_forces=bool(has_forces), band_spec=band_spec,
+        colff_spec=colff_spec, shard_slabs=shard_slabs,
+        device=str(torch.device(device)),
     )
 
 
@@ -243,9 +290,12 @@ def grow_config(config: StepConfig, factor: float = 1.4,
     all): the neighbor list for OVF_NBR, m_max for OVF_LANCZOS, the
     far-field caps for OVF_FF, the blocked cell cap for OVF_NF, and on the
     banded engine the band window (or, at W = 256, the row tile) for
-    OVF_BAND and the column cap for OVF_NF."""
+    OVF_BAND and the column cap for OVF_NF.  OVF_CLASS drops the
+    occupancy classes to the one safe class, and so does a band that
+    grows (its tile counts change)."""
     if flags is None:
-        flags = OVF_NF | OVF_BAND | OVF_FF | OVF_LANCZOS | OVF_NBR
+        flags = (OVF_NF | OVF_BAND | OVF_FF | OVF_LANCZOS | OVF_NBR
+                 | OVF_CLASS)
     flags = int(flags)
     changes = {}
     if flags & OVF_NBR and config.nbr_spec is not None:
@@ -257,6 +307,11 @@ def grow_config(config: StepConfig, factor: float = 1.4,
     if flags & OVF_FF:
         changes["ff_spec"] = _grown(config.ff_spec, factor)
         changes["colff_spec"] = _grown(config.colff_spec, factor)
+    if (flags & OVF_CLASS and config.band_spec is not None
+            and (config.band_spec.classes is not None
+                 or config.band_spec.slab_classes is not None)):
+        changes["band_spec"] = config.band_spec._replace(
+            classes=None, slab_classes=None)
     if config.band_spec is not None and flags & (OVF_NF | OVF_BAND):
         bs = config.band_spec
         rows, window, cap = bs.rows, bs.window, bs.bins.cap
@@ -270,6 +325,7 @@ def grow_config(config: StepConfig, factor: float = 1.4,
         cap = max(-(-cap // rows) * rows, window)
         changes["band_spec"] = bs._replace(
             bins=bs.bins._replace(cap=cap), rows=rows, window=window,
+            classes=None, slab_classes=None,
         )
     return dataclasses.replace(config, **changes)
 
@@ -304,9 +360,12 @@ class BandedCtx(NamedTuple):
     zsh: torch.Tensor      # (O, C, T) window z image shifts
     ff_factors: object     # cff.ColFactors, or the stored far-field weights
     tilt: float
-    blocks: object = None  # (1, C, 2, S, 5W) after build_mv (None on CPU)
+    blocks: object = None  # (1, C, 2, S, 5W) after build_mv (None on CPU;
+                           #  the per-class tuple when spec.classes is set)
     nf_f: object = None    # (3, C, cap) forces binned with the near field
     ff_f: object = None    # (3, C_ff, cap_ff) ditto on the far-field grid
+    cls: object = None     # (perm, inv) occupancy-class packing (CUDA), or
+                           #  None
 
 
 class BlockedCtx(NamedTuple):
@@ -386,8 +445,15 @@ def prepare_banded(config: StepConfig, pos, box: Box, forces=None):
     factors = _ff_shared(config, ff_bins, box)
     overflow = (_ovf(nf_bins.overflow, OVF_NF) | _ovf(ff_bins.overflow, OVF_FF)
                 | _ovf(band_overflow, OVF_BAND))
+    cls = None
+    if bs.classes is not None and pos.device.type != "cpu":
+        # the kernels pack A by occupancy class; the plain matvec (CPU)
+        # ignores the classes, as the JAX package's off-TPU path does
+        perm, inv, class_overflow = bdn.class_assignment(bs, n_valid)
+        cls = (perm, inv)
+        overflow = overflow | _ovf(class_overflow, OVF_CLASS)
     return BandedCtx(nf_bins, ff_bins, j0, n_valid, zsh, factors,
-                     box.tilt_xy, nf_f=nf_f, ff_f=ff_f), overflow
+                     box.tilt_xy, nf_f=nf_f, ff_f=ff_f, cls=cls), overflow
 
 
 def prepare_blocked(config: StepConfig, pos, box: Box, forces=None):
@@ -440,7 +506,8 @@ def build_mv(config: StepConfig, ctx, ft):
     if config.engine != "banded":
         return ctx, mreal_t(config, ctx, ft)
     blocks, u = bdn.build_mv_banded(*_band_args(config, ctx), ft,
-                                    config.params.self_mobility)
+                                    config.params.self_mobility,
+                                    pack=ctx.cls)
     return ctx._replace(blocks=blocks), u
 
 
@@ -453,7 +520,8 @@ def mreal_t(config: StepConfig, ctx, cells):
     if config.engine == "blocked":
         return bnf.matvec_cells(ctx.blocks, config.nf_spec, ctx.nf_bins,
                                 cells, mob)
-    return bdn.matvec_banded(ctx.blocks, *_band_args(config, ctx), cells, mob)
+    return bdn.matvec_banded(ctx.blocks, *_band_args(config, ctx), cells, mob,
+                             pack=ctx.cls)
 
 
 def _far_field(config: StepConfig, ctx, box: Box, noise_args):

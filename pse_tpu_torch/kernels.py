@@ -39,9 +39,11 @@ _SIGNATURES = {
     "pse_fill_cells": [_P, _P, _P, _P, _P, _I, _P, _I, _I, _I,
                        _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     "pse_banded_build": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _F, _F, _F,
-                         _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P, _P],
+                         _I, _I, _I, _I, _I, _F, _F, _F, _F, _I, _P,
+                         _P, _I, _P, _P, _P],
     "pse_banded_matvec": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _F, _F, _F, _F, _I, _P, _P, _P],
+                          _I, _F, _F, _F, _F, _I, _P, _P,
+                          _P, _I, _P, _P, _P],
     "pse_contract_col": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P, _P],
     "pse_spread_col": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],

@@ -1,7 +1,6 @@
 """Banded near field: z-sorted columns and rank-band mobility coefficients.
 
-PyTorch counterpart of ``pse_tpu/ops/banded_nearfield.py`` (single
-occupancy class).  After sorting each (x, y) column of particles by z, the
+PyTorch counterpart of ``pse_tpu/ops/banded_nearfield.py``.  After sorting each (x, y) column of particles by z, the
 partners of a particle within rcut occupy a contiguous rank band of each
 neighbouring column, so the mobility between an R-row tile of column c and a
 neighbour column is one (R x W) block whose W lanes start at a per-(tile,
@@ -11,7 +10,13 @@ block dtype (1, C, 2, S, 5W); the mirror offsets are applied as transposes,
 and the dyadic d d^T part is rebuilt from f32 coordinates.
 
 Host side: ``make_band_spec``, ``full_xy_offsets``, ``compute_windows``,
-``_finish_u``.  One kernel source, ``csrc/banded.cu``, is wrapped by
+``_finish_u`` and the occupancy classes (``measure_col_counts``,
+``make_slab_counts``, ``make_band_classes``, ``class_segments``,
+``class_assignment``).  With ``spec.classes`` set, the kernels on CUDA
+tensors pack A by class: the columns sorted by descending tile need, and
+class k stores only its t_k tiles of its c_k columns, so the all-pad tail
+tiles the cap's slack forces on the average column are neither built nor
+stored.  One kernel source, ``csrc/banded.cu``, is wrapped by
 ``build_mv_banded`` (build A and apply it to the first one or two
 right-hand sides), ``matvec_banded`` (apply the stored A to one or two)
 and ``build_banded_blocks`` (build A alone).  On CPU tensors the matvec
@@ -22,8 +27,10 @@ float32; the build runs ``build_banded_blocks_reference``.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
+from itertools import combinations
 from typing import NamedTuple
 
 import numpy as np
@@ -45,14 +52,21 @@ def full_xy_offsets():
 
 
 class BandSpec(NamedTuple):
-    """Static banded-near-field configuration (hashable).  Occupancy-class
-    packing (the JAX package's ``classes``) is not ported: one class."""
+    """Static banded-near-field configuration (hashable)."""
 
     bins: BinSpec            # n_cells = (ncx, ncy, 1); cap = slots per column
     offsets: tuple           # xy stencil offsets, (0, 0) first
     window: int              # W: band window width (multiple of 64)
     rows: int                # R: row-tile height (multiple of 8)
     block_dtype: str = "bfloat16"
+    # Occupancy classes ((tiles_k, ncols_k), ...) ascending by tiles, summing
+    # to C, the last tiles_k == cap // rows: each step packs the columns into
+    # the smallest class whose tile count covers ceil(n_valid / rows).  None:
+    # one class.
+    classes: tuple | None = None
+    # The same for the per-shard extended slab grid of the halo engine
+    # ((ncx / D + 2) ncy local columns, sized for the worst slab).
+    slab_classes: tuple | None = None
 
 
 def make_band_spec(
@@ -101,6 +115,165 @@ def make_band_spec(
         rows=rows,
         block_dtype=block_dtype,
     )
+
+
+def measure_col_counts(spec: BandSpec, pos, L, tilt=0.0) -> np.ndarray:
+    """Measured per-column occupancy (ncx ncy,), on the host in numpy, to
+    size the occupancy classes.  ``tilt``: the box's xy tilt at the
+    measurement (a re-measure mid-run from a sheared box)."""
+    ncx, ncy, _ = spec.bins.n_cells
+    L = tuple(float(x) for x in L)
+    p = np.asarray(pos, np.float64)
+    fx = np.mod((p[:, 0] - float(tilt) * p[:, 1]) / L[0] + 0.5, 1.0)
+    fy = np.mod(p[:, 1] / L[1] + 0.5, 1.0)
+    cx = np.clip((fx * ncx).astype(np.int64), 0, ncx - 1)
+    cy = np.clip((fy * ncy).astype(np.int64), 0, ncy - 1)
+    return np.bincount(cx * ncy + cy, minlength=ncx * ncy)
+
+
+def make_slab_counts(spec: BandSpec, n_slabs: int, counts) -> np.ndarray:
+    """(D, (nxl + 2) ncy) per-slab extended column counts from the global
+    (ncx ncy,) histogram: each halo shard owns ncx / D x-layers plus one
+    periodic halo layer per side."""
+    ncx, ncy, _ = spec.bins.n_cells
+    c = np.asarray(counts, np.int64).reshape(ncx, ncy)
+    nxl = ncx // n_slabs
+    out = []
+    for d in range(n_slabs):
+        xs = np.arange(d * nxl - 1, (d + 1) * nxl + 1) % ncx
+        out.append(c[xs].reshape(-1))
+    return np.stack(out)
+
+
+def make_band_classes(spec: BandSpec | None, n_particles: int,
+                      col_counts=None) -> BandSpec | None:
+    """``spec`` with occupancy classes chosen, or as it was (no classes
+    worth having, or classes already set).
+
+    Tiles past ceil(n_valid / rows) hold zero A.  With ``col_counts`` (the
+    measured histogram, 1-D, or 2-D (K, C) for K column sets that must all
+    fit) the classes come from a brute force over at most 3 sub-cap
+    classes, with capacities counting columns within half a row tile of a
+    boundary as crossed plus a 2.5 sqrt(m) + 8 excursion margin; without
+    it, from a Poisson model with 5 sigma + 2 % slack.  The JAX package's
+    rule, number for number."""
+    if spec is None or spec.classes is not None:
+        return spec
+    ncx, ncy, _ = spec.bins.n_cells
+    C = ncx * ncy
+    R = spec.rows
+    t_cap = spec.bins.cap // R
+    mu = n_particles / C
+    if C < 32 or t_cap < 6 or mu < 64:
+        return spec
+    sigma = math.sqrt(mu)
+
+    def pois_le(t):                    # P(ceil(nv/R) <= t) = P(nv <= t*R)
+        return 0.5 * (1.0 + math.erf(
+            (t * R + 0.5 - mu) / (sigma * math.sqrt(2.0))))
+
+    if col_counts is not None:
+        counts = np.asarray(col_counts, np.int64)
+        if counts.ndim == 1:
+            counts = counts[None]
+        needs = -(-np.maximum(counts, 1) // R)
+        soft = np.minimum(-(-(np.maximum(counts, 1) + R // 2) // R), t_cap)
+        if needs.shape[-1] != C or needs.max() > t_cap:
+            return spec
+
+        def cap_gt(t):
+            # columns above t, with the R/2 crossing margin, plus an
+            # excursion margin for ~O(100) steps of drift
+            m = int((soft > t).sum(axis=-1).max())
+            return min(C, int(math.ceil(m + 2.5 * math.sqrt(max(m, 1.0))
+                                        + 8.0)))
+
+        cand_ts = sorted({int(t) for t in needs.ravel() if t < t_cap})
+        best = None
+        for k in (1, 2, 3):            # number of sub-cap classes
+            for ts in combinations(cand_ts, k):
+                cums = [cap_gt(t) for t in ts]
+                c_low = C - cums[0]
+                if c_low <= 0:
+                    continue
+                classes = [(ts[0], c_low)]
+                for j in range(1, k):
+                    classes.append((ts[j], cums[j - 1] - cums[j]))
+                classes.append((t_cap, cums[k - 1]))
+                classes = [(t, c) for (t, c) in classes if c > 0]
+                if len(classes) < 2:
+                    continue
+                # the JAX package's cost of one more launch per class
+                cost = sum(t * c for t, c in classes)
+                cost += 0.005 * C * t_cap * (len(classes) - 1)
+                if best is None or cost < best[0]:
+                    best = (cost, tuple(classes))
+        if best is None or best[0] > 0.94 * C * t_cap:
+            return spec
+        return spec._replace(classes=best[1])
+
+    def cap_frac(p_gt):                # capacity above a class
+        return p_gt + 5.0 * math.sqrt(max(p_gt * (1.0 - p_gt), 1e-9) / C) \
+            + 0.02
+
+    t1 = max(1, int(math.ceil((mu + 0.5 * sigma) / R)))
+    t2 = t1 + 1
+    if t2 >= t_cap:
+        return spec
+    c3 = min(C, int(math.ceil(C * cap_frac(1.0 - pois_le(t2)))))
+    c23 = min(C, int(math.ceil(C * cap_frac(1.0 - pois_le(t1)))))
+    c2 = max(c23 - c3, 0)
+    c1 = C - c3 - c2
+    if c1 <= 0:
+        return spec
+    avg = (c1 * t1 + c2 * t2 + c3 * t_cap) / C
+    if avg > 0.94 * t_cap:
+        return spec
+    classes = tuple(
+        (t, c) for (t, c) in ((t1, c1), (t2, c2), (t_cap, c3)) if c > 0)
+    if len(classes) < 2:
+        return spec
+    return spec._replace(classes=classes)
+
+
+def class_segments(spec: BandSpec):
+    """Packed-order segments [(tiles_k, ncols_k, col_offset_k), ...],
+    need-descending: the largest class owns packed columns [0, c_K)."""
+    segs = []
+    off = 0
+    for (tk, ck) in reversed(spec.classes):
+        segs.append((tk, ck, off))
+        off += ck
+    return segs
+
+
+@lru_cache(maxsize=16)
+def _segment_heads(spec: BandSpec, device: str):
+    """(offsets, tiles) of the class segments as int64 tensors."""
+    segs = class_segments(spec)
+    return (torch.tensor([o for _, _, o in segs], device=device),
+            torch.tensor([t for t, _, _ in segs], device=device))
+
+
+def class_assignment(spec: BandSpec, n_valid: torch.Tensor):
+    """(perm, inv, overflow): the packed -> actual column order of the
+    class-packed kernels, its inverse, and a () bool set when a segment's
+    first (largest) member needs more tiles than its class holds.
+
+    Columns sort by descending tile need, ties by ascending column id (a
+    stable sort, as the JAX package's ``lax.sort``), so the packing is
+    deterministic."""
+    C = n_valid.shape[0]
+    R = spec.rows
+    need = (torch.clamp(n_valid.long(), min=1) + (R - 1)) // R
+    need_desc, perm = torch.sort(-need, stable=True)
+    offs, tiles = _segment_heads(spec, str(n_valid.device))
+    overflow = torch.any(-need_desc[offs] > tiles)
+    perm = perm.to(torch.int32)
+    inv = torch.empty(C, dtype=torch.int32, device=n_valid.device)
+    inv[perm.long()] = torch.arange(C, dtype=torch.int32,
+                                    device=n_valid.device)
+    return perm, inv, overflow
 
 
 def compute_windows(bins: CellBins, spec: BandSpec, box: Box, rcut: float,
@@ -290,6 +463,79 @@ def _cheb_operand(cheb: ChebPair, device: str) -> torch.Tensor:
 # what _launch_banded launches: the build, then the matvec on the A it
 # wrote, or the build alone
 MODE_BUILD_MV, MODE_BUILD = 0, 1
+MAX_CLASSES = 4    # the kernels' class table (csrc/banded.cu MAXK)
+
+
+def _class_args(spec: BandSpec, pack):
+    """The kernels' class operands (perm, n, tiles, columns): the segments
+    in packed order with ``pack`` = (perm, inv) from ``class_assignment``,
+    or one class (null, 0, null, null) without classes."""
+    if (spec.classes is None) != (pack is None):
+        raise ValueError("banded kernels take pack=(perm, inv) exactly when "
+                         "spec.classes is set")
+    if spec.classes is None:
+        return None, 0, None, None
+    segs = class_segments(spec)
+    if len(segs) > MAX_CLASSES:
+        raise ValueError(f"banded kernels take at most {MAX_CLASSES} "
+                         f"occupancy classes, not {len(segs)}")
+    perm = pack[0].to(torch.int32).contiguous()
+    n = len(segs)
+    return (perm, n, (ctypes.c_int * n)(*[t for t, _, _ in segs]),
+            (ctypes.c_int * n)(*[c for _, c, _ in segs]))
+
+
+def _alloc_blocks(spec: BandSpec, device):
+    """A in the block dtype: (1, C, 2, S, 5W), or with classes a tuple of
+    per-class views (1, c_k, 2, t_k R, 5W) in packed order over one
+    allocation."""
+    ncx, ncy, _ = spec.bins.n_cells
+    C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
+    a_dtype = getattr(torch, spec.block_dtype)
+    if spec.classes is None:
+        return torch.empty((1, C, 2, S, N_HALF * W), dtype=a_dtype,
+                           device=device)
+    segs = class_segments(spec)
+    sizes = [ck * 2 * tk * R * N_HALF * W for tk, ck, _ in segs]
+    flat = torch.empty(sum(sizes), dtype=a_dtype, device=device)
+    return tuple(part.view(1, ck, 2, tk * R, N_HALF * W)
+                 for part, (tk, ck, _) in zip(torch.split(flat, sizes), segs))
+
+
+def _blocks_base(blocks, spec: BandSpec) -> torch.Tensor:
+    """The tensor whose pointer the kernels take as A, after checking that
+    ``blocks`` has the layout ``_alloc_blocks`` gives."""
+    ncx, ncy, _ = spec.bins.n_cells
+    C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
+    a_dtype = getattr(torch, spec.block_dtype)
+    if spec.classes is None:
+        parts, shapes = (blocks,), [(1, C, 2, S, N_HALF * W)]
+    else:
+        parts = tuple(blocks) if isinstance(blocks, (tuple, list)) else ()
+        shapes = [(1, ck, 2, tk * R, N_HALF * W)
+                  for tk, ck, _ in class_segments(spec)]
+    ok = len(parts) == len(shapes)
+    end = None
+    for part, shape in zip(parts, shapes):
+        ok = ok and (isinstance(part, torch.Tensor) and part.shape == shape
+                     and part.dtype == a_dtype and part.is_contiguous()
+                     and (end is None or part.data_ptr() == end))
+        if ok:
+            end = part.data_ptr() + part.numel() * part.element_size()
+    if not ok:
+        raise ValueError("banded kernels: blocks do not match the spec "
+                         "(one allocation, per class in packed order)")
+    return parts[0]
+
+
+def pack_blocks_reference(A: torch.Tensor, spec: BandSpec, perm):
+    """Plain packing of a full-layout A (1, C, 2, S, 5W) into the class
+    layout: per class segment k, the columns perm[off_k : off_k + c_k] and
+    their first t_k R rows, (1, c_k, 2, t_k R, 5W) each."""
+    R = spec.rows
+    perm = perm.long()
+    return tuple(A[:, perm[off:off + ck], :, :tk * R].contiguous()
+                 for tk, ck, off in class_segments(spec))
 
 
 def _band_operands(bins: CellBins, spec: BandSpec, j0, n_valid, zsh,
@@ -324,22 +570,28 @@ def _band_operands(bins: CellBins, spec: BandSpec, j0, n_valid, zsh,
 
 def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
                    cheb: ChebPair, L, ewald_cut, ewald_dr, j0, n_valid, zsh,
-                   f_cells=None):
+                   f_cells=None, pack=None):
     """The build kernel of csrc/banded.cu and, in MODE_BUILD_MV, the matvec
     kernel on the A it wrote; returns (blocks, uo (C, 9, 3 nrhs, S) or
     None, rc).  ``f_cells``: (3 nrhs, C, S) with nrhs 1 or 2, or None in
-    MODE_BUILD."""
+    MODE_BUILD.  ``pack``: (perm, inv) when spec.classes is set (build_mv
+    only); blocks is then the tuple of per-class A views."""
     if (f_cells is None) != (mode == MODE_BUILD):
         raise ValueError("banded kernels take right-hand sides unless they "
                          "only build")
+    if mode == MODE_BUILD and spec.classes is not None:
+        raise ValueError("the build alone is single-class; the class-packed "
+                         "A comes from build_mv_banded(pack=...)")
     xyz, _, _, j0h, zsh5, nv = _band_operands(bins, spec, j0, n_valid, zsh,
                                               f_cells)
+    perm, n_cls, cls_t, cls_c = _class_args(spec, pack)
     mask = bins.mask.to(torch.float32).contiguous()
     ncx, ncy, _ = spec.bins.n_cells
-    C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
+    S, R, W = spec.bins.cap, spec.rows, spec.window
     dev = bins.px.device
     a_dtype = getattr(torch, spec.block_dtype)
-    blocks = torch.empty((1, C, 2, S, N_HALF * W), dtype=a_dtype, device=dev)
+    blocks = _alloc_blocks(spec, dev)
+    base = _blocks_base(blocks, spec)
     cheb_dev = _cheb_operand(cheb, str(dev))
     Lf = [float(np.float32(x)) for x in L]
     p = kernels.ptr
@@ -349,27 +601,28 @@ def _launch_banded(mode: int, bins: CellBins, tilt_xy, spec: BandSpec,
         float(np.float32(float(ewald_cut) ** 2)),
         float(np.float32(float(ewald_dr) ** 2)),
         ncx, ncy, S, R, W, *Lf, float(np.float32(tilt_xy)),
-        int(a_dtype == torch.bfloat16), p(blocks), kernels.stream_of(mask),
+        int(a_dtype == torch.bfloat16), p(base), p(perm), n_cls, cls_t,
+        cls_c, kernels.stream_of(mask),
     )
     if mode == MODE_BUILD or rc:
         return blocks, None, rc
     uo, rc = _launch_matvec(blocks, bins, tilt_xy, spec, L, j0, n_valid, zsh,
-                            f_cells)
+                            f_cells, pack)
     return blocks, uo, rc
 
 
 def _launch_matvec(blocks, bins: CellBins, tilt_xy, spec: BandSpec, L, j0,
-                   n_valid, zsh, f_cells):
-    """One matvec launch of csrc/banded.cu on the stored ``blocks``;
-    returns (uo (C, 9, 3 nrhs, S), rc)."""
+                   n_valid, zsh, f_cells, pack=None):
+    """One matvec launch of csrc/banded.cu on the stored ``blocks`` (the
+    per-class tuple with ``pack``); returns (uo (C, 9, 3 nrhs, S), rc),
+    uo in actual column order."""
     xyz, f, nrhs, j0h, zsh, nv = _band_operands(bins, spec, j0, n_valid,
                                                 zsh, f_cells)
+    perm, n_cls, cls_t, cls_c = _class_args(spec, pack)
+    base = _blocks_base(blocks, spec)
     ncx, ncy, _ = spec.bins.n_cells
     C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
     a_dtype = getattr(torch, spec.block_dtype)
-    if (blocks.shape != (1, C, 2, S, N_HALF * W) or blocks.dtype != a_dtype
-            or not blocks.is_contiguous()):
-        raise ValueError("matvec_banded: blocks do not match the spec")
     uo = torch.empty((C, 9, 3 * nrhs, S), dtype=torch.float32,
                      device=bins.px.device)
     Lf = [float(np.float32(x)) for x in L]
@@ -377,8 +630,8 @@ def _launch_matvec(blocks, bins: CellBins, tilt_xy, spec: BandSpec, L, j0,
     rc = kernels.library().pse_banded_matvec(
         nrhs, *(p(t) for t in xyz), p(f), p(j0h), p(zsh), p(nv),
         ncx, ncy, S, R, W, *Lf, float(np.float32(tilt_xy)),
-        int(a_dtype == torch.bfloat16), p(blocks), p(uo),
-        kernels.stream_of(xyz[0]),
+        int(a_dtype == torch.bfloat16), p(base), p(uo), p(perm), n_cls,
+        cls_t, cls_c, kernels.stream_of(xyz[0]),
     )
     return uo, rc
 
@@ -400,15 +653,18 @@ def _reference_per_rhs(f_cells, matvec):
 
 def build_mv_banded(bins: CellBins, tilt_xy, spec: BandSpec, cheb: ChebPair,
                     L, ewald_cut, ewald_dr, j0, n_valid, zsh, f_cells,
-                    self_mobility):
+                    self_mobility, pack=None):
     """(blocks, u): build A (1, C, 2, S, 5W) in the block dtype and apply
     the rounded coefficients to ``f_cells`` (3 nrhs, C, S), nrhs 1 or 2:
     the build kernel, then the matvec kernel on the A it wrote (one
     operator for Lanczos: u is bitwise ``matvec_banded``'s on ``blocks``).
+    With spec.classes, ``pack`` = (perm, inv) from ``class_assignment``
+    and blocks is the tuple of per-class A (1, c_k, 2, t_k R, 5W) in
+    packed order, in one allocation; u is in actual column order.
 
     On CPU tensors: (None, ``matvec_banded_reference`` per right-hand
-    side); ``j0``/``zsh`` then cover all 9 offsets (the kernel reads the
-    first 5)."""
+    side), which ignores the classes; ``j0``/``zsh`` then cover all 9
+    offsets (the kernel reads the first 5)."""
     if f_cells.device.type == "cpu":
         return None, _reference_per_rhs(
             f_cells, lambda f: matvec_banded_reference(
@@ -416,7 +672,7 @@ def build_mv_banded(bins: CellBins, tilt_xy, spec: BandSpec, cheb: ChebPair,
                 n_valid, f, self_mobility))
     blocks, uo, rc = _launch_banded(MODE_BUILD_MV, bins, tilt_xy, spec, cheb,
                                     L, ewald_cut, ewald_dr, j0, n_valid, zsh,
-                                    f_cells)
+                                    f_cells, pack)
     build_mv_banded.launches += 1
     kernels.check("build_mv_banded", rc)
     return blocks, _finish_u(_fold_planes(uo), spec, f_cells, self_mobility)
@@ -427,19 +683,19 @@ build_mv_banded.launches = 0
 
 def matvec_banded(blocks, bins: CellBins, tilt_xy, spec: BandSpec,
                   cheb: ChebPair, L, ewald_cut, ewald_dr, j0, n_valid, zsh,
-                  f_cells, self_mobility):
+                  f_cells, self_mobility, pack=None):
     """u = M_real f_cells (3 nrhs, C, S), nrhs 1 or 2, from the stored
-    ``blocks``.
+    ``blocks`` (the per-class tuple and ``pack`` with spec.classes).
 
     On CPU tensors: ``matvec_banded_reference`` per right-hand side
-    (``blocks`` unused)."""
+    (``blocks`` and ``pack`` unused)."""
     if f_cells.device.type == "cpu":
         return _reference_per_rhs(
             f_cells, lambda f: matvec_banded_reference(
                 bins, tilt_xy, spec, cheb, L, ewald_cut, ewald_dr, j0,
                 n_valid, f, self_mobility))
     uo, rc = _launch_matvec(blocks, bins, tilt_xy, spec, L, j0, n_valid, zsh,
-                            f_cells)
+                            f_cells, pack)
     matvec_banded.launches += 1
     kernels.check("matvec_banded", rc)
     return _finish_u(_fold_planes(uo), spec, f_cells, self_mobility)
@@ -528,7 +784,13 @@ def build_banded_blocks(bins: CellBins, tilt_xy, spec: BandSpec,
 
     The JAX package's build also returns pos_cyc, the prefolded window
     coordinates its TPU matvec streams back; the port's matvec re-derives
-    them from the slot arrays, so there is none here."""
+    them from the slot arrays, so there is none here.  Single-class, as in
+    the JAX package: a spec with classes raises (the packed A comes from
+    ``build_mv_banded(pack=...)``)."""
+    if spec.classes is not None:
+        raise ValueError("build_banded_blocks is the single-class build; "
+                         "the class-packed A comes from "
+                         "build_mv_banded(pack=...)")
     if bins.px.device.type == "cpu":
         return build_banded_blocks_reference(bins, tilt_xy, spec, cheb, L,
                                              ewald_cut, ewald_dr, j0,

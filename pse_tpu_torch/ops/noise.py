@@ -36,6 +36,15 @@ def _uniform(shape, lo, hi, generator, device):
     return u * (hi - lo) + lo
 
 
+def particle_noise(n: int, device, generator=None, uniforms=None):
+    """psi (N, 3), U(-sqrt 3, sqrt 3) per component (unit variance); the
+    step draws ``particle_noise_t``'s layout instead.  ``uniforms``
+    replaces the draw."""
+    if uniforms is not None:
+        return _given(uniforms, device)
+    return _uniform((n, 3), -SQRT3, SQRT3, generator, device)
+
+
 def particle_noise_t(shape, device, generator=None, uniforms=None):
     """psi in the engine's transposed layout (3, *shape), U(-sqrt 3, sqrt 3);
     ``uniforms`` replaces the draw."""
@@ -114,3 +123,33 @@ def wave_space_noise_hat_half(params: PSEParams, kvec, W, T, dt,
 
     f = torch.complex(re, im)
     return _project_and_scale(f, kvec, W, params, T, dt)
+
+
+def wave_space_noise_hat(params: PSEParams, kvec, W, T, dt, generator=None,
+                         uniforms=None):
+    """Full-spectrum Hermitian random k-space velocity increment
+    (3, Nx, Ny, Nz) complex64, for ``gridk_arrays(..., half=False)``'s
+    kvec and W: every node draws, a non-generator node takes the conjugate
+    of its partner's draw, self-conjugate nodes keep a real draw times
+    sqrt 2, and k = 0 is zero.  ``uniforms``: the raw (6, Nx, Ny, Nz) draw,
+    real parts first."""
+    shape = (params.Nx, params.Ny, params.Nz)
+    dev = W.device
+    if uniforms is None:
+        u = _uniform((6,) + shape, -SQRT3D2, SQRT3D2, generator, dev)
+    else:
+        u = _given(uniforms, dev)
+    re, im = u[:3], u[3:]
+    conj, gen, selfc, origin = (torch.as_tensor(a, device=dev) for a in
+                                hermitian_noise_maps(*shape))
+    conj = conj.reshape(-1).long()
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    re_c = re.reshape(3, -1)[:, conj].reshape((3,) + shape)
+    im_c = im.reshape(3, -1)[:, conj].reshape((3,) + shape)
+    re_p = torch.where(gen[None], re, re_c)
+    im_p = torch.where(gen[None], im, -im_c)
+    re_p = torch.where(selfc[None], SQRT2 * re, re_p)
+    im_p = torch.where(selfc[None] | origin[None], zero, im_p)
+    re_p = torch.where(origin[None], zero, re_p)
+    return _project_and_scale(torch.complex(re_p, im_p), kvec, W, params, T,
+                              dt)

@@ -12,6 +12,7 @@ L = 40, the oracle gate's N = 2048 in L = 26.71 with its 27^3 grid and
 L = 10); chip_smoke.py holds the kernels at the main path's shapes.
 """
 
+import dataclasses
 from types import SimpleNamespace
 
 import numpy as np
@@ -51,9 +52,14 @@ def _rel(a, b):
 
 
 def _setup(n, L, tilt, seed=0, **config):
+    """A banded config with one occupancy class (the kernels' single-class
+    layout; the class-packed one has tests of its own), positions and a
+    box."""
     params = make_params(xi=0.5, error=1e-3, L=L)
     cfg = pi.make_config(params, n, engine="banded", has_forces=False,
                          device="cuda", **config)
+    cfg = dataclasses.replace(cfg, band_spec=cfg.band_spec._replace(
+        classes=None, slab_classes=None))
     rng = np.random.default_rng(seed)
     pos = torch.as_tensor(
         rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32),
@@ -295,7 +301,8 @@ def test_matvec_at_the_largest_cap_build_mv_launches(cuda, nrhs, window,
     p = cfg.params
     bs = cfg.band_spec
     bs = bs._replace(window=window, rows=rows,
-                     bins=bs.bins._replace(cap=cap))
+                     bins=bs.bins._replace(cap=cap), classes=None,
+                     slab_classes=None)
     assert bs.bins.n_cells_total == 12
     rng = np.random.default_rng(0)
     pos = torch.as_tensor((rng.uniform(-0.5, 0.5, size=(n, 3))
@@ -668,3 +675,67 @@ def test_gather_step_and_mobility_on_card_match_cpu(cuda, box, n, subdiv,
         uc, _ = pi.mobility(cpu, pos, forces, 0.3)
         ug, og = pi.mobility(gpu, pos, forces, 0.3)
         assert int(og) == 0 and _rel_max(ug.cpu(), uc) < 1e-4
+
+
+@pytest.mark.parametrize("nrhs", [1, 2])
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-5),
+                                         ("bfloat16", 2e-3)])
+@pytest.mark.parametrize("tilt", [0.0, 0.07, 0.3])
+def test_class_packed_kernels_are_bitwise_the_single_class(cuda, nrhs, dtype,
+                                                          bound, tilt):
+    """Occupancy classes (tests/test_banded.py's manual 2-class split at
+    N = 1080, L = 24): the packed build_mv and matvec give the single-class
+    kernels' u bit for bit, within the plain version's bound; the packed A
+    is the single-class A's tiles of its columns; reruns are bitwise."""
+    cfg, pos, box = _setup(1080, 24.0, tilt, seed=31, block_dtype=dtype)
+    p, bs1 = cfg.params, cfg.band_spec
+    C, t_cap = bs1.bins.n_cells_total, bs1.bins.cap // bs1.rows
+    bs = bs1._replace(classes=((t_cap - 1, C - 2), (t_cap, 2)))
+    bins = bin_columns(pos, box, bs.bins)
+    j0, nv, _, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+    perm, inv, ovf = bdn.class_assignment(bs, nv)
+    assert not bool(ovf)
+    f = torch.cat([vec_to_cells(bins, bs.bins, torch.randn(
+        pos.shape, generator=torch.Generator(device="cuda").manual_seed(k),
+        device=cuda)) for k in range(nrhs)])
+    args = (bins, box.tilt_xy, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr,
+            j0, nv, zsh)
+    args1 = (bins, box.tilt_xy, bs1) + args[3:]
+    blocks, u = bdn.build_mv_banded(*args, f, p.self_mobility,
+                                    pack=(perm, inv))
+    blocks1, u1 = bdn.build_mv_banded(*args1, f, p.self_mobility)
+    assert isinstance(blocks, tuple) and len(blocks) == 2
+    assert torch.equal(u, u1)
+    um = bdn.matvec_banded(blocks, *args, f, p.self_mobility,
+                           pack=(perm, inv))
+    assert torch.equal(um, bdn.matvec_banded(blocks1, *args1, f,
+                                             p.self_mobility))
+    assert torch.equal(um, bdn.matvec_banded(blocks, *args, f,
+                                             p.self_mobility,
+                                             pack=(perm, inv)))
+    for a, b in zip(blocks, bdn.pack_blocks_reference(blocks1, bs, perm)):
+        assert torch.equal(a, b)
+    ref = torch.cat([bdn.matvec_banded_reference(
+        *args1[:9], f[k:k + 3], p.self_mobility) for k in range(0, 3 * nrhs,
+                                                                3)])
+    assert _rel(um, ref) < bound
+    with pytest.raises(ValueError, match="pack"):
+        bdn.matvec_banded(blocks, *args, f, p.self_mobility)
+    with pytest.raises(ValueError, match="single-class"):
+        bdn.build_banded_blocks(*args)
+
+
+def test_class_packed_overflow_flags_and_stays_in_bounds(cuda):
+    """A top class too small: the step's mask carries OVF_CLASS, and the
+    packed build_mv runs (its over-full columns cut to their class's tiles)
+    with a finite result."""
+    cfg, pos, box = _setup(1080, 24.0, 0.3, seed=31)
+    bs = cfg.band_spec
+    C, t_cap = bs.bins.n_cells_total, bs.bins.cap // bs.rows
+    ocfg = dataclasses.replace(cfg, band_spec=bs._replace(
+        classes=((2, C - 1), (t_cap, 1))))
+    forces = torch.randn(pos.shape, device=cuda)
+    ctx, mask = pi.prepare(ocfg, pos, box, forces)
+    assert int(mask) & pi.OVF_CLASS
+    _, u = pi.build_mv(ocfg, ctx, ctx.nf_f)
+    assert bool(torch.isfinite(u).all())
