@@ -41,6 +41,22 @@ Phases (each failure makes the script exit non-zero without the result line):
             emulation of class_assignment, reruns bitwise, an overfull
             split flagging OVF_CLASS, and the step with classes bitwise the
             step without;
+  [halo-small]  the halo engine (parallel.halo) on the card, D = 1, 2 and 4
+            x-slabs on cuda:0 (a mesh whose device repeats), at N=4800,
+            L=33 (W = 192), tilts 0 and 0.3, float32 and bfloat16 A: halo
+            mobility against integrator.mobility <= 1e-4 / 2e-3 (2-norm),
+            with two slab classes bitwise without, reruns bitwise, at D = 4
+            the card against the CPU halo <= 1e-4 / 5e-3 (max-norm); the
+            thermal step with forces at equal uniforms against one device
+            (displacement, 2-norm, equal m) and its rerun bitwise; mreal_t2
+            against two mreal_t <= 1e-4; an overfull slab class flagging
+            OVF_CLASS;
+  [sharded-small]  make_sharded_step / make_sharded_mobility (blocked and
+            gather, D = 4 on cuda:0) on tests/test_sharding.py's 8^3
+            lattice, thermal (equal uniforms) and athermal, tilt 0.03,
+            against the one-device step: positions <= 2e-5, velocities
+            <= 5e-4 of their scale, mobility <= 1e-5 of its scale, gather
+            bitwise;
   [main]    the brownian main path: Simulation(N=100k, phi=0.45) with
             PSEv1(T=1, seed=1, xi=0.5, error=1e-3) on engine="banded", one
             occupancy class (set_integrator's classes dropped), a
@@ -80,6 +96,35 @@ Phases (each failure makes the script exit non-zero without the result line):
             warm-up and 10 timed steps: ms/step, particle-steps/s, the m
             histogram, the peak device memory and the kernel launches (the
             fill of the neighbor list's cell binning > 0, the others 0);
+  [halo-main]  make_halo_step at the main path's config with
+            shard_slabs=4, D = 4 on cuda:0 (slab classes from the lattice
+            where they form): one mobility against the one-device engine
+            (<= 2e-3, 2-norm); build_mv (1 and 2 RHS) and the matvec on
+            the first and the last slab's own operands (C_loc 90, the
+            seam-shifted halos) against matvec_banded_reference on the
+            interior columns (float32 <= 1e-5, bfloat16 <= 2e-3, as
+            [kernels]) and against the one-device kernel on the same
+            columns; a warm-up that must flag no overflow and 10 timed
+            thermal steps with forces that must flag none (counts set to 0
+            before and read after: build_mv D and the matvec D (m - 1) per
+            step), ms/step, each slab's A bytes, the peak device memory,
+            and torch.profiler over 3 more steps;
+  [halo-1m]  BASELINE config 5 on one card: N = 1,000,000 (bench.py's
+            lattice, phi 0.45), D = 4 on cuda:0: one mobility against the
+            one-device banded engine (<= 2e-3) and the slab kernel checks
+            of [halo-main] (C_loc 320, S 1184, W 192, the slab classes), a
+            warm-up of 5 steps and 3 timed thermal steps with forces as in
+            [halo-main], except that a warm-up step that flags an overflow
+            is redone on grow_config's config, as Simulation.run does (the
+            lattice fills columns to 1158 of the 1184 slots and the 4th
+            step overflows them on either engine); the retries are printed,
+            and a grown config gets the mobility and kernel checks again
+            at the state the timed steps start from; each slab's A against
+            the global A, the peak device memory, the profile;
+  [sharded-main]  make_sharded_step at N = 100k (blocked and gather, D = 4
+            on cuda:0): one mobility against the one-device engine (<= 1e-5
+            of its scale), a warm-up and 3 timed thermal steps with forces,
+            each shard's bytes of pair data;
   [sedimentation]  the twin of examples/sedimentation.py on the card (N=10k,
             L=64, athermal, mobility_matvec and 20 steps);
   [profile] torch.profiler over 3 more steps of each main path (with and
@@ -128,6 +173,8 @@ Phases (each failure makes the script exit non-zero without the result line):
             events, kernel alone by graph replay, single, packed, packed,
             single; bounds on the live tiles' A read and the packed A
             written);
+each kernel's line also carries launches_halo, its launches in
+[halo-main]'s timed steps;
 then the card's name and power limit (nvidia-smi) and, last, the line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 It needs the repository's pse_tpu_torch package beside it and a CUDA device.
@@ -459,8 +506,9 @@ def phase_classes_small(ph):
         over = bs1._replace(classes=((2, C - 1), (t_cap, 1)))
         ocfg = dataclasses.replace(cfg, band_spec=over)
         box = make_box(p.L, 0.3)
-        ctx, mask = integrator.prepare(ocfg, pos, box, forces[0])
-        ctx, u = integrator.build_mv(ocfg, ctx, ctx.nf_f)
+        eng = integrator.engine_of(ocfg)
+        ctx, mask = eng.prepare(pos, box, forces[0])
+        ctx, u = eng.build_mv(ctx, ctx.nf_f)
         ph.check(f"overfull classes {dtype}: OVF_CLASS set (0 = set)",
                  0 if int(mask) & integrator.OVF_CLASS else 1, 0)
         if not bool(torch.isfinite(u).all()):
@@ -1279,9 +1327,10 @@ def phase_blocks(ph, sim):
     return launches
 
 
-def phase_profile(sim, ms_step, label, steps=3):
-    """Where a main path's step time goes: torch.profiler over a few more
-    steps (after the launch counts were read), device time by kernel, and
+def phase_profile(run, ms_step, label, steps=3):
+    """Where a main path's step time goes: torch.profiler over ``run(steps)``
+    (a few more steps after the launch counts were read), device time by
+    kernel, and
     the device's busy share of the unprofiled ms/step.  Reports only: a
     profiler that cannot trace the card here fails no phase."""
     import torch
@@ -1293,7 +1342,7 @@ def phase_profile(sim, ms_step, label, steps=3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            sim.run(steps)
+            run(steps)
             torch.cuda.synchronize()
         rows = []
         for ev in prof.key_averages():
@@ -1965,6 +2014,516 @@ def phase_blocked_timing(simb, results):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# parallel/: the halo x-slab engine and the sharded step on one card, D
+# slabs or shards on cuda:0 (a mesh whose device repeats)
+
+HALO_N, HALO_L = 4800, 33.0        # tests/test_halo.py's box
+HALO_WARM, HALO_TIMED = 2, 10
+HALO_1M_N, HALO_1M_WARM, HALO_1M_TIMED = 1_000_000, 5, 3
+SHARDED_TIMED = 3
+
+
+def _cuda_mesh(d):
+    import torch
+
+    from pse_tpu_torch.parallel import sharding
+
+    return sharding.make_mesh([torch.device("cuda:0")] * d)
+
+
+def _fitting_slab_classes(config, pos, tilts):
+    """Two slab classes that hold every slab at these tilts: the top two
+    columns of each slab at the cap's tiles, the rest at the most any
+    slab's third column needs (or None where that is the cap)."""
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+
+    bs, D = config.band_spec, config.shard_slabs
+    ncx, ncy, _ = bs.bins.n_cells
+    c_loc, t_cap = (ncx // D + 2) * ncy, bs.bins.cap // bs.rows
+    low = 0
+    for tilt in tilts:
+        counts = bdn.measure_col_counts(bs, pos, config.params.L, tilt)
+        for c in bdn.make_slab_counts(bs, D, counts):
+            need = np.sort(-(-np.maximum(c, 1) // bs.rows))[::-1]
+            low = max(low, int(need[2]))
+    return None if low >= t_cap else ((low, c_loc - 2), (t_cap, 2))
+
+
+def _halo_config(n, L, D, dtype, thermal=True, seed=3, device="cuda",
+                 positions=None):
+    from pse_tpu_torch import integrator, make_params
+
+    params = make_params(xi=XI, error=ERROR, L=L)
+    return integrator.make_config(
+        params, n, thermal=thermal, engine="banded", seed=seed,
+        shard_slabs=D, block_dtype=dtype, ff_weight_dtype=dtype,
+        positions=positions, device=device)
+
+
+def phase_halo_small(ph):
+    """The halo engine on the card at N=4800, L=33 (tests/test_halo.py's
+    box), D = 1, 2 and 4 slabs on cuda:0, tilts 0 and 0.3, float32 and
+    bfloat16 A, slab classes on and off."""
+    import dataclasses
+
+    import torch
+
+    from pse_tpu_torch import integrator
+    from pse_tpu_torch.parallel import halo, sharding
+
+    t0 = time.perf_counter()
+    print(f"[halo-small] the halo engine on the card (N={HALO_N}, "
+          f"L={HALO_L}, D = 1, 2, 4 slabs on cuda:0)")
+    rng = np.random.default_rng(1)
+    pos = rng.uniform(-HALO_L / 2, HALO_L / 2, (HALO_N, 3)).astype(np.float32)
+    F = rng.normal(size=(HALO_N, 3)).astype(np.float32)
+    Fg = torch.from_numpy(F).cuda()
+    bounds = {"float32": (1e-4, 1e-4), "bfloat16": (2e-3, 5e-3)}
+    for D in (1, 2, 4):
+        mesh = _cuda_mesh(D)
+        for dtype, (b_one, b_cpu) in bounds.items():
+            cfg = _halo_config(HALO_N, HALO_L, D, dtype)
+            bs = cfg.band_spec
+            cls = _fitting_slab_classes(cfg, pos, (0.0, 0.3))
+            with_cls = dataclasses.replace(cfg, band_spec=bs._replace(
+                slab_classes=cls))
+            no_cls = dataclasses.replace(cfg, band_spec=bs._replace(
+                slab_classes=None))
+            print(f"  D={D} {dtype}: columns {bs.bins.n_cells[:2]} S "
+                  f"{bs.bins.cap} W {bs.window}, slab classes {cls}")
+            for tilt in (0.0, 0.3):
+                tag = f"D={D} {dtype} tilt={tilt}"
+                u1, o1 = integrator.mobility(no_cls, pos, F, tilt)
+                u_n, o_n = halo.make_halo_mobility(no_cls, mesh)(pos, F, tilt)
+                u_c, o_c = halo.make_halo_mobility(with_cls, mesh)(pos, F,
+                                                                  tilt)
+                u_r, _ = halo.make_halo_mobility(with_cls, mesh)(pos, F, tilt)
+                ph.check(f"{tag}: halo mobility vs one device (2-norm)",
+                         _norm_rel(u_n, u1), b_one)
+                if int(o1) or int(o_n) or int(o_c):
+                    ph.failed.append(f"halo-small {tag}: overflow "
+                                     f"{int(o1)} / {int(o_n)} / {int(o_c)}")
+                if cls is not None and not torch.equal(u_c, u_n):
+                    ph.failed.append(f"halo-small {tag}: slab classes not "
+                                     "bitwise one class")
+                if not torch.equal(u_c, u_r):
+                    ph.failed.append(f"halo-small {tag}: rerun not bitwise")
+                if D == 4:
+                    cpu = _halo_config(HALO_N, HALO_L, D, dtype,
+                                       device="cpu")
+                    cpu = dataclasses.replace(cpu, cheb=cfg.cheb)
+                    u_h, _ = halo.make_halo_mobility(
+                        cpu, sharding.make_mesh(
+                            [torch.device("cpu")] * D))(pos, F, tilt)
+                    ph.check(f"{tag}: card halo vs CPU halo (max)",
+                             rel_max(u_c.cpu(), u_h)[0], b_cpu)
+            # the thermal step with forces at equal uniforms, halo vs one
+            # device, and its rerun
+            draws = _raw_uniforms(cfg, 7)
+            st = integrator.make_state(pos, 5, 0.3, "cuda")
+            s1, i1 = integrator.step(no_cls, st, Fg, 1.0, DT, 0.5, 0.31,
+                                     uniforms=draws)
+            run = halo.make_halo_step(with_cls, mesh)
+            s2, i2 = run(st, Fg, 1.0, DT, 0.5, 0.31, uniforms=draws)
+            s3, _ = run(st, Fg, 1.0, DT, 0.5, 0.31, uniforms=draws)
+            d1, d2 = s1.pos - st.pos, s2.pos - st.pos
+            ph.check(f"D={D} {dtype}: halo step vs one device, displacement "
+                     f"(2-norm), m {i2['m_lanczos']}/{i1['m_lanczos']}",
+                     _norm_rel(d2, d1), b_one)
+            if i1["m_lanczos"] != i2["m_lanczos"] or int(s2.nbr_overflow):
+                ph.failed.append(f"halo-small D={D} {dtype}: step m or "
+                                 "overflow")
+            if not torch.equal(s2.pos, s3.pos):
+                ph.failed.append(f"halo-small D={D} {dtype}: step rerun not "
+                                 "bitwise")
+            # the two-RHS matvec against two singles
+            eng = halo.make_halo_engine(with_cls, mesh)
+            box = integrator._box_of(cfg, 0.3)
+            ctx, _ = eng.prepare(st.pos, box, Fg)
+            fa = eng.f_slots_t(ctx, Fg)
+            fb = eng.f_slots_t(ctx, Fg.flip(0))
+            ctx, _ = eng.build_mv(ctx, fa)
+            u2 = eng.mreal_t2(ctx, torch.cat([fa, fb]))
+            ph.check(f"D={D} {dtype}: mreal_t2 vs two mreal_t (2-norm)",
+                     max(_norm_rel(u2[:3], eng.mreal_t(ctx, fa)),
+                         _norm_rel(u2[3:], eng.mreal_t(ctx, fb))), 1e-4)
+            # an overfull slab: a top class of one column
+            C_loc = eng.c_loc
+            over = dataclasses.replace(cfg, band_spec=bs._replace(
+                slab_classes=((2, C_loc - 1), (bs.bins.cap // bs.rows, 1))))
+            oeng = halo.make_halo_engine(over, mesh)
+            octx, mask = oeng.prepare(st.pos, box, Fg)
+            _, u = oeng.build_mv(octx, octx.nf_f)
+            ph.check(f"D={D} {dtype}: overfull slab classes flag OVF_CLASS "
+                     "(0 = set)", 0 if int(mask) & integrator.OVF_CLASS
+                     else 1, 0)
+            if not bool(torch.isfinite(u).all()):
+                ph.failed.append(f"halo-small D={D} {dtype}: overfull u not "
+                                 "finite")
+    print(f"  [halo-small] {time.perf_counter() - t0:.1f} s")
+
+
+def _halo_steps(ph, label, cfg, pos, F, D, warm, timed, may_grow=False):
+    """A warm-up and ``timed`` thermal steps with forces through
+    make_halo_step at D slabs on cuda:0.  A warm-up step that flags an
+    overflow is redone on the config grow_config gives, as Simulation.run
+    does (a failure of the phase unless ``may_grow``), and the grown config
+    is checked (mobility against one device, the slab kernels against
+    their plain version) at the state the timed steps start from.  The timed
+    steps run with every launch count set to 0 just before and read
+    after, and must flag none.  Then torch.profiler over 3 more steps.
+    Returns (launches, ms/step, the profile or None, each slab's A bytes,
+    the peak memory)."""
+    import torch
+
+    from pse_tpu_torch import integrator
+    from pse_tpu_torch.parallel import halo
+
+    mesh = _cuda_mesh(D)
+    run = halo.make_halo_step(cfg, mesh)
+    cur = [integrator.make_state(pos, 0, 0.0, "cuda")]
+    ms_hist = []
+
+    def advance(k):
+        for _ in range(k):
+            cur[0], info = run(cur[0], F, 1.0, DT, 0.0)
+            ms_hist.append(info["m_lanczos"])
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries, done = [], 0
+    while done < warm and len(retries) <= 3:
+        new, info = run(cur[0], F, 1.0, DT, 0.0)
+        flags = int(info["nbr_overflow"])
+        if flags:
+            retries.append((done, flags))
+            cfg = integrator.grow_config(cfg, flags=flags)
+            run = halo.make_halo_step(cfg, mesh)
+            continue
+        cur[0], done = new, done + 1
+    bs = cfg.band_spec
+    print(f"  warm-up {warm} steps: overflow retries {retries} ((step, "
+          f"mask) each, redone on grow_config's config); the timed steps "
+          f"run at S {bs.bins.cap} W {bs.window}")
+    if retries and not may_grow:
+        ph.failed.append(f"{label}: warm-up overflow retries {retries}")
+    if retries:
+        _halo_vs_one(ph, f"{label} grown", cfg, cur[0].pos, F, D)
+        _check_halo_kernels(ph, f"{label} grown", cfg, cur[0].pos, D)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, launches = _counted(ph, label, ("fill_cells", "contract_col",
+                                       "spread_col", "build_mv_banded",
+                                       "matvec_banded"),
+                           lambda: advance(timed))
+    ms = 1e3 * (time.perf_counter() - t0) / timed
+    peak = torch.cuda.max_memory_allocated()
+    state = cur[0]
+    if int(state.nbr_overflow) or not bool(torch.isfinite(state.pos).all()):
+        ph.failed.append(f"{label}: timed steps flag overflow "
+                         f"{int(state.nbr_overflow)} or positions not finite")
+    want_mv = D * sum(m - 1 for m in ms_hist)
+    if (launches["build_mv_banded"] != D * timed
+            or launches["matvec_banded"] != want_mv):
+        ph.failed.append(f"{label}: launches build_mv "
+                         f"{launches['build_mv_banded']} (expected "
+                         f"{D * timed}), matvec {launches['matvec_banded']} "
+                         f"(expected {want_mv})")
+    spec = halo.make_halo_engine(cfg, mesh).spec
+    slab_a = _band_bytes(spec)
+    print(f"  {timed} steps: {ms:.3f} ms/step, {pos.shape[0] * 1e3 / ms:.6g} "
+          f"particle-steps/s (host clock); m {ms_hist}; per step build_mv "
+          f"{launches['build_mv_banded'] / timed:g} (D = {D}), matvec "
+          f"{launches['matvec_banded'] / timed:g} (D (m - 1) = "
+          f"{want_mv / timed:g}); slab classes {spec.classes}, each slab's "
+          f"A {slab_a / 1e6:.1f} MB ({D} x {slab_a / 1e6:.1f} = "
+          f"{D * slab_a / 1e6:.1f} MB against the global single class's "
+          f"{_band_bytes(bs._replace(classes=None)) / 1e6:.1f} MB); peak "
+          f"device memory {peak / 1e9:.3f} GB")
+    prof = phase_profile(advance, ms, f"{label} halo")
+    return launches, ms, prof, slab_a, peak
+
+
+def _halo_vs_one(ph, label, cfg, pos, F, D):
+    """One halo mobility at D slabs against the one-device engine on the
+    same config: <= 2e-3 in the 2-norm, no overflow."""
+    from pse_tpu_torch import integrator
+    from pse_tpu_torch.parallel import halo
+
+    u1, o1 = integrator.mobility(cfg, pos, F)
+    u, o = halo.make_halo_mobility(cfg, _cuda_mesh(D))(pos, F)
+    ph.check(f"{label}: halo mobility vs the one-device engine (2-norm)",
+             _norm_rel(u, u1), 2e-3)
+    if int(o) or int(o1):
+        ph.failed.append(f"{label}: mobility overflow {int(o)} / {int(o1)}")
+
+
+def _check_halo_kernels(ph, label, cfg, pos, D):
+    """The banded kernels at the halo's own shapes: the first and the last
+    slab's operands from HaloEngine.prepare at tilt 0 (the seam-shifted
+    halos; the slab classes where the config has them), build_mv at one
+    and two right-hand sides and the stored-A matvec on its A, against
+    matvec_banded_reference on the slab's interior columns (max abs / max
+    |ref|): float32 <= 1e-5, bfloat16 <= 2e-3, the bounds of [kernels];
+    and the slab's two-RHS u against the one-device kernel's (build_mv on
+    the global operands, one class) on the same columns, within the same
+    bounds, with whether they are bitwise equal."""
+    import torch
+
+    from pse_tpu_torch import integrator
+    from pse_tpu_torch.ops import banded_nearfield as bdn
+    from pse_tpu_torch.parallel import halo
+
+    p = cfg.params
+    eng = halo.make_halo_engine(cfg, _cuda_mesh(D))
+    box = integrator._box_of(cfg, 0.0)
+    pos = torch.as_tensor(pos, device="cuda")
+    ctx, mask = eng.prepare(pos, box)
+    if int(mask):
+        ph.failed.append(f"{label}: slab operands flag overflow {int(mask)}")
+    g = torch.Generator(device="cuda")
+    g.manual_seed(7)
+    ft = torch.cat([eng.f_slots_t(ctx, torch.randn(
+        pos.shape, generator=g, device="cuda")) for _ in range(2)])
+
+    def interior(u):
+        return u.reshape(u.shape[0], eng.nxl + 2, eng.ncy, -1)[:, 1:-1]
+
+    # the one-device kernel on the global operands, per block dtype
+    gs = cfg.band_spec._replace(classes=None, slab_classes=None)
+    j0g, nvg, _, zshg = bdn.compute_windows(
+        ctx.nf_bins, gs, box, p.ewald_cut, offsets=gs.offsets[:bdn.N_HALF])
+    one = {}
+    for dtype in ("float32", "bfloat16"):
+        _, u = bdn.build_mv_banded(
+            ctx.nf_bins, ctx.tilt, gs._replace(block_dtype=dtype), cfg.cheb,
+            p.L, p.ewald_cut, p.ewald_dr, j0g, nvg, zshg, ft,
+            p.self_mobility)
+        one[dtype] = u.reshape(6, gs.bins.n_cells[0], eng.ncy, -1)
+        torch.cuda.empty_cache()
+
+    for d in sorted({0, D - 1}):
+        s = ctx.slabs[d]
+        f = eng.exchange_x(ft, d)
+        j0, _, _, _ = bdn.compute_windows(s.bins, eng.spec, box, p.ewald_cut,
+                                          col_mask=eng.interior[d])
+        ref = interior(bdn._reference_per_rhs(
+            f, lambda fk: bdn.matvec_banded_reference(
+                s.bins, ctx.tilt, eng.spec, cfg.cheb, p.L, p.ewald_cut,
+                p.ewald_dr, j0, s.n_valid, fk, p.self_mobility)))
+        for dtype, bound in (("float32", 1e-5), ("bfloat16", 2e-3)):
+            args = (s.bins, ctx.tilt, eng.spec._replace(block_dtype=dtype),
+                    cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, s.j0, s.n_valid,
+                    s.zsh)
+            blocks, u1 = bdn.build_mv_banded(*args, f[:3], p.self_mobility,
+                                             pack=s.cls)
+            _, u2 = bdn.build_mv_banded(*args, f, p.self_mobility, pack=s.cls)
+            m1 = bdn.matvec_banded(blocks, *args, f[:3], p.self_mobility,
+                                   pack=s.cls)
+            m2 = bdn.matvec_banded(blocks, *args, f, p.self_mobility,
+                                   pack=s.cls)
+            tag = (f"{label} slab {d} C_loc {eng.c_loc} S "
+                   f"{eng.spec.bins.cap} W {eng.spec.window} classes "
+                   f"{s.cls is not None} {dtype}")
+            for name, u, want in (("build_mv 1-RHS", u1, ref[:3]),
+                                  ("build_mv 2-RHS", u2, ref),
+                                  ("matvec 1-RHS", m1, ref[:3]),
+                                  ("matvec 2-RHS", m2, ref)):
+                ph.check(f"{tag}: {name} vs plain (max abs / max)",
+                         rel_max(interior(u), want)[0], bound)
+            want = one[dtype][:, d * eng.nxl:(d + 1) * eng.nxl]
+            for name, u in (("build_mv", u2), ("matvec", m2)):
+                got = interior(u)
+                ph.check(f"{tag}: {name} 2-RHS vs the one-device kernel on "
+                         f"its columns (bitwise {bool(torch.equal(got, want))}"
+                         ")", rel_max(got, want)[0], bound)
+            del blocks, u1, u2, m1, m2
+    del ctx
+    torch.cuda.empty_cache()
+
+
+def phase_halo_main(ph):
+    """The halo step at the main path's config (N=100k, shard_slabs=4,
+    D = 4 on cuda:0): mobility against one device, then the timed steps."""
+    import torch
+
+    t0 = time.perf_counter()
+    pos, L = make_positions(N, PHI, seed=0)
+    cfg = _halo_config(N, L, 4, None, seed=SEED, positions=pos)
+    bs = cfg.band_spec
+    print(f"[halo-main] make_halo_step N={N} phi={PHI} L={L:.4f}, "
+          f"shard_slabs=4, D=4 on cuda:0: columns {bs.bins.n_cells[:2]} S "
+          f"{bs.bins.cap} W {bs.window} {bs.block_dtype}, slab classes "
+          f"{bs.slab_classes}")
+    F = torch.as_tensor(np.random.default_rng(1).normal(size=(N, 3))
+                        .astype(np.float32), device="cuda")
+    _halo_vs_one(ph, "halo-main", cfg, pos, F, 4)
+    _check_halo_kernels(ph, "halo-main", cfg, pos, 4)
+    out = _halo_steps(ph, "halo-main", cfg, pos, F, 4, HALO_WARM, HALO_TIMED)
+    torch.cuda.empty_cache()
+    print(f"  [halo-main] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_halo_1m(ph):
+    """BASELINE config 5 on one card: N = 1,000,000, phi 0.45, D = 4 slabs
+    on cuda:0; mobility against the one-device banded engine, then timed
+    thermal steps with forces."""
+    import torch
+
+    t0 = time.perf_counter()
+    pos, L = make_positions(HALO_1M_N, PHI, seed=0)
+    cfg = _halo_config(HALO_1M_N, L, 4, None, seed=SEED, positions=pos)
+    bs = cfg.band_spec
+    print(f"[halo-1m] make_halo_step N={HALO_1M_N} phi={PHI} L={L:.4f}, D=4 "
+          f"on cuda:0: columns {bs.bins.n_cells[:2]} S {bs.bins.cap} W "
+          f"{bs.window} {bs.block_dtype}, slab classes {bs.slab_classes}; "
+          f"the global A {_band_bytes(bs) / 1e9:.3f} GB")
+    F = torch.as_tensor(np.random.default_rng(1).normal(
+        size=(HALO_1M_N, 3)).astype(np.float32), device="cuda")
+    _halo_vs_one(ph, "halo-1m", cfg, pos, F, 4)
+    torch.cuda.empty_cache()
+    _check_halo_kernels(ph, "halo-1m", cfg, pos, 4)
+    out = _halo_steps(ph, "halo-1m", cfg, pos, F, 4, HALO_1M_WARM,
+                      HALO_1M_TIMED, may_grow=True)
+    torch.cuda.empty_cache()
+    print(f"  [halo-1m] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _sharded_uniforms(config, n, seed):
+    """Raw uniforms for a step: psi in the engine's slots, the wave."""
+    if config.engine != "gather":
+        return _raw_uniforms(config, seed)
+    p = config.params
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(-math.sqrt(3), math.sqrt(3), (3, n))
+            .astype(np.float32),
+            rng.uniform(-math.sqrt(1.5), math.sqrt(1.5),
+                        (6, p.Nx, p.Ny, p.Nz // 2 + 1)).astype(np.float32))
+
+
+def phase_sharded_small(ph):
+    """The sharded step and mobility (blocked, gather) at D = 4 on cuda:0
+    against the one-device ones on the card: tests/test_sharding.py's
+    8^3 lattice, thermal and athermal, tilt 0.03."""
+    import torch
+
+    import pse_tpu_torch as pse
+    from pse_tpu_torch import integrator
+    from pse_tpu_torch.parallel import sharding
+
+    t0 = time.perf_counter()
+    print("[sharded-small] the sharded step on the card (8^3 lattice, "
+          "L=24, D=4 on cuda:0)")
+    n, L = 512, 24.0
+    rng = np.random.default_rng(0)
+    pos = pse.create_lattice(8, L)
+    pos = (pos + rng.normal(scale=0.08, size=pos.shape)).astype(np.float32)
+    F = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                        device="cuda")
+    mesh = _cuda_mesh(4)
+    for engine in ("blocked", "gather"):
+        for thermal in (True, False):
+            cfg = integrator.make_config(pse.make_params(xi=XI, error=ERROR,
+                                                         L=L), n,
+                                         thermal=thermal, seed=1,
+                                         engine=engine, device="cuda")
+            tag = f"{engine} {'thermal' if thermal else 'athermal'}"
+            draws = _sharded_uniforms(cfg, n, 3) if thermal else None
+            st = integrator.make_state(pos, 0, 0.03, "cuda")
+            s1, i1 = integrator.step(cfg, st, F, 1.0, DT, 0.2, 0.031,
+                                     uniforms=draws)
+            s2, i2 = sharding.make_sharded_step(cfg, mesh)(
+                st, F, 1.0, DT, 0.2, 0.031, uniforms=draws)
+            scale = float(i1["velocities"].abs().max())
+            ph.check(f"{tag}: sharded step positions vs one device (max "
+                     "abs)", float((s2.pos - s1.pos).abs().max()), 2e-5)
+            ph.check(f"{tag}: velocities (max abs / scale)",
+                     float((i2["velocities"] - i1["velocities"]).abs().max())
+                     / scale, 5e-4)
+            if i1["m_lanczos"] != i2["m_lanczos"] or int(s2.nbr_overflow):
+                ph.failed.append(f"sharded-small {tag}: m or overflow")
+            if engine == "gather" and not torch.equal(s1.pos, s2.pos):
+                ph.failed.append(f"sharded-small {tag}: not bitwise")
+        u1, _ = integrator.mobility(cfg, pos, F, 0.05)
+        u2, o2 = sharding.make_sharded_mobility(cfg, mesh)(pos, F, 0.05)
+        ph.check(f"{engine}: sharded mobility vs one device (max abs / "
+                 "scale)", float((u2 - u1).abs().max())
+                 / float(u1.abs().max()), 1e-5)
+        if int(o2) or (engine == "gather" and not torch.equal(u1, u2)):
+            ph.failed.append(f"sharded-small {engine} mobility: overflow or "
+                             "not bitwise")
+    print(f"  [sharded-small] {time.perf_counter() - t0:.1f} s")
+
+
+def phase_sharded_main(ph):
+    """The sharded step at N=100k (blocked, gather; D = 4 on cuda:0):
+    mobility against the one-device engine, then timed thermal steps with
+    forces, and each device's bytes of pair data."""
+    import torch
+
+    import pse_tpu_torch as pse
+    from pse_tpu_torch import integrator
+    from pse_tpu_torch.parallel import sharding
+
+    t0 = time.perf_counter()
+    pos, L = make_positions(N, PHI, seed=0)
+    F = torch.as_tensor(np.random.default_rng(1).normal(size=(N, 3))
+                        .astype(np.float32), device="cuda")
+    mesh = _cuda_mesh(4)
+    out = {}
+    for engine in ("blocked", "gather"):
+        cfg = integrator.make_config(pse.make_params(xi=XI, error=ERROR, L=L),
+                                     N, seed=SEED, engine=engine,
+                                     device="cuda")
+        print(f"[sharded-main] make_sharded_step N={N} engine={engine}, D=4 "
+              "on cuda:0")
+        u1, _ = integrator.mobility(cfg, pos, F)
+        u2, o2 = sharding.make_sharded_mobility(cfg, mesh)(pos, F)
+        ph.check(f"sharded-main {engine}: mobility vs one device (max abs / "
+                 "scale)", float((u2 - u1).abs().max())
+                 / float(u1.abs().max()), 1e-5)
+        if int(o2):
+            ph.failed.append(f"sharded-main {engine}: mobility overflow")
+        del u1, u2
+        eng = sharding.make_sharded_engine(cfg, mesh)
+        ctx, _ = eng.prepare(torch.as_tensor(pos, device="cuda"),
+                             integrator._box_of(cfg, 0.0), F)
+        if engine == "blocked":
+            nbytes = [b.numel() * b.element_size() for *_, b in ctx.parts]
+        else:
+            nbytes = [sum(t.numel() * t.element_size() for t in c)
+                      for *_, c in ctx.parts]
+        del ctx
+        torch.cuda.empty_cache()
+        run = sharding.make_sharded_step(cfg, mesh)
+        st = integrator.make_state(pos, 0, 0.0, "cuda")
+        st, _ = run(st, F, 1.0, DT, 0.0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t1 = time.perf_counter()
+        ms_hist = []
+        for _ in range(SHARDED_TIMED):
+            st, info = run(st, F, 1.0, DT, 0.0)
+            ms_hist.append(info["m_lanczos"])
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t1) / SHARDED_TIMED
+        if int(st.nbr_overflow) or not bool(torch.isfinite(st.pos).all()):
+            ph.failed.append(f"sharded-main {engine}: overflow or not finite")
+        print(f"  {SHARDED_TIMED} steps: {ms:.3f} ms/step (host clock), m "
+              f"{ms_hist}; each device's pair data "
+              f"{[round(b / 1e6, 1) for b in nbytes]} MB; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        out[engine] = ms
+        torch.cuda.empty_cache()
+    print(f"  [sharded-main] {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def device_line():
     try:
         out = subprocess.run(
@@ -2023,31 +2582,36 @@ def main() -> int:
     phase_gather_small(ph)
     phase_gather_oracle(ph)
     phase_classes_small(ph)
+    phase_halo_small(ph)
+    phase_sharded_small(ph)
     sim, _, ms_b = phase_main(ph, forces=False)
-    phase_profile(sim, ms_b, "brownian main-path")
+    phase_profile(sim.run, ms_b, "brownian main-path")
     del sim
     simf, launches, ms_f = phase_main(ph, forces=True)
-    phase_profile(simf, ms_f, "with-forces main-path")
+    phase_profile(simf.run, ms_f, "with-forces main-path")
     phase_mobility(ph, simf)
     launches["build_banded_blocks"] = phase_blocks(
         ph, simf)["build_banded_blocks"]
     sim, _, ms_cb = phase_main(ph, forces=False, classes=True)
-    prof_cb = phase_profile(sim, ms_cb, "brownian main-classes")
+    prof_cb = phase_profile(sim.run, ms_cb, "brownian main-classes")
     del sim
     simc, launches_c, ms_cf = phase_main(ph, forces=True, classes=True)
-    prof_cf = phase_profile(simc, ms_cf, "with-forces main-classes")
+    prof_cf = phase_profile(simc.run, ms_cf, "with-forces main-classes")
     phase_classes_mobility(ph, simc)
     class_run = phase_classes_run(ph)
     sim, _, ms_bb = phase_main(ph, forces=False, engine="blocked")
     del sim
     simb, launches_b, ms_bf = phase_main(ph, forces=True, engine="blocked")
-    phase_profile(simb, ms_bf, "with-forces blocked")
+    phase_profile(simb.run, ms_bf, "with-forces blocked")
     phase_mobility(ph, simb, "blocked-mobility")
     sim, _, ms_gb = phase_main(ph, forces=False, engine="gather")
-    prof_gb = phase_profile(sim, ms_gb, "brownian gather")
+    prof_gb = phase_profile(sim.run, ms_gb, "brownian gather")
     del sim
     simg, launches_g, ms_gf = phase_main(ph, forces=True, engine="gather")
-    prof_gf = phase_profile(simg, ms_gf, "with-forces gather")
+    prof_gf = phase_profile(simg.run, ms_gf, "with-forces gather")
+    launches_h, ms_h, prof_h, slab_a, peak_h = phase_halo_main(ph)
+    _, ms_h1m, prof_h1m, slab_a1m, peak_h1m = phase_halo_1m(ph)
+    ms_sh = phase_sharded_main(ph)
     phase_sedimentation(ph)
     results = {name: {"err": [], "library_ms": None}
                for name, _, _ in KERNELS}
@@ -2070,6 +2634,7 @@ def main() -> int:
             "launches_blocked": launches_b[name],
             "launches_gather": launches_g[name],
             "launches_classes": launches_c[name],
+            "launches_halo": launches_h[name],
             **{k: r[k] for k in ("kernel_ms", "kernel_ms_1rhs",
                                  "bound_full_A_ms", "bin_columns_ms",
                                  "bin_particles_ms", "blocked_ms",
@@ -2088,6 +2653,18 @@ def main() -> int:
     print(f"blocked near field (not kernels): {json.dumps(results['blocked'])}")
     print(f"gather engine (not kernels): {json.dumps(results['gather'])}")
     print(f"classes-run: {json.dumps(class_run)}")
+    for name, n, ms, prof, a, peak in (
+            ("halo-main", N, ms_h, prof_h, slab_a, peak_h),
+            ("halo-1m", HALO_1M_N, ms_h1m, prof_h1m, slab_a1m, peak_h1m)):
+        print(f"{name}: {ms:.3f} ms/step, {1e3 * n / ms:.6g} "
+              f"particle-steps/s" + ("" if prof is None else
+                                     f", device {prof['device_ms']:.3f} "
+                                     f"ms/step, idle {100 * prof['idle']:.1f}"
+                                     f" %, {prof['launches']:.1f} kernel "
+                                     "launches per step")
+              + f"; each slab's A {a / 1e6:.1f} MB; peak {peak / 1e9:.3f} GB")
+    print("sharded-main: " + ", ".join(f"{k} {v:.3f} ms/step"
+                                       for k, v in ms_sh.items()))
     for name, ms, prof in (("main-classes", ms_cb, prof_cb),
                            ("main-classes-forces", ms_cf, prof_cf),
                            ("gather", ms_gb, prof_gb),

@@ -20,6 +20,12 @@ reference's::
                                            error=1e-3))
     sim.run(1000)
 
+``parallel`` runs the step over a mesh of devices in one process
+(``parallel.sharding.make_mesh``, where a device may repeat): the banded
+near field in x-slabs with halos (``parallel.halo.make_halo_step``), or
+the gather and blocked near fields split over the devices
+(``parallel.sharding.make_sharded_step``).
+
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 This package imports ``torch``, numpy and scipy; it never imports ``jax``
 or ``pse_tpu``.

@@ -21,8 +21,15 @@ step:
 ``mobility`` is the deterministic U = M F of the same pieces.  Randomness is
 keyed by (hash_seed(seed), step) on a ``torch.Generator`` of the step's
 device, so a rerun on one device is bitwise equal and a step's draws do not
-depend on history.  Halo slabs are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item.
+depend on history.
+
+Each engine is an object (``engine_of(config)``: ``BandedEngine``,
+``BlockedEngine``, ``GatherEngine``) with the JAX package's operators
+(``prepare``, ``build_mv``, ``mreal_t``, ``f_slots_t``, ``slots_of_psi``,
+``psi_result_to_particles``, ``spread``, ``contract``); ``step_impl`` and
+``mobility_impl`` take one, so that ``parallel.halo`` (the banded near
+field in x-slabs) and ``parallel.sharding`` (the near field split over
+devices) stand in for it.
 """
 
 from __future__ import annotations
@@ -36,7 +43,8 @@ import numpy as np
 import torch
 
 from .box import Box, make_box, wrap
-from .cellbins import bin_columns, bin_particles, vec_from_cells
+from .cellbins import (bin_columns, bin_particles, vec_from_cells,
+                       vec_to_cells)
 from .neighbors import NeighborSpec, build_neighbor_list, grow_spec, make_spec
 from .params import PSEParams, ewald_table_on, gridk_arrays
 from .ops import banded_nearfield as bdn
@@ -59,16 +67,6 @@ OVF_NBR = 16      # gather-engine neighbor capacity
 OVF_CLASS = 32    # banded occupancy-class capacities (falls back to 1 class)
 
 ENGINES = ("banded", "blocked", "gather")
-
-_NOT_PORTED = (
-    "not ported to pse_tpu_torch yet (ROADMAP.md, Queue A: {what}); the "
-    "port runs on one device"
-)
-
-
-def _not_ported(what: str):
-    return NotImplementedError(_NOT_PORTED.format(what=what))
-
 
 class State(NamedTuple):
     """Integration state: device tensors for the particle arrays and the
@@ -209,12 +207,13 @@ def make_config(
     list (``nbr_spec``, built for every engine as in the JAX package).
     ``positions``: the (N, 3) initial configuration on the host, whose
     measured column histogram sizes the banded engine's occupancy classes
-    (without it, a Poisson model does).  Raises NotImplementedError for
-    several halo slabs, which the port does not have yet."""
+    (without it, a Poisson model does).  ``shard_slabs``: the number of
+    x-slabs the halo engine (``parallel.halo``) splits the banded column
+    grid into; ncx is rounded down to a multiple of it, and the one-device
+    occupancy classes are sized only for one slab (``slab_classes``, the
+    slabs' own, for every count)."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be one of {ENGINES}, not {engine!r}")
-    if shard_slabs != 1:
-        raise _not_ported("parallel/ halo slabs")
     if block_dtype is None:
         block_dtype = "bfloat16" if params.error >= 1e-3 else "float32"
     elif block_dtype == "bfloat16" and params.error < 1e-3:
@@ -236,14 +235,16 @@ def make_config(
     if engine == "banded":
         band_spec = bdn.make_band_spec(
             n_particles, params.L, params.ewald_cut, max_tilt=max_tilt,
-            block_dtype=block_dtype,
+            block_dtype=block_dtype, ncx_multiple=shard_slabs,
         )
         if band_spec is not None:
             counts = None
             if positions is not None:
                 counts = bdn.measure_col_counts(band_spec, positions,
                                                 params.L)
-            band_spec = bdn.make_band_classes(band_spec, n_particles, counts)
+            if shard_slabs == 1:
+                band_spec = bdn.make_band_classes(band_spec, n_particles,
+                                                  counts)
             band_spec = _size_slab_classes(band_spec, shard_slabs,
                                            n_particles, counts)
         if ff_spec is None or band_spec is None:
@@ -373,7 +374,7 @@ class BlockedCtx(NamedTuple):
 
     nf_bins: object        # 3-D cell bins
     ff_bins: object        # far-field bins
-    blocks: torch.Tensor   # (noff, 6, C, cap, cap) pair blocks
+    blocks: object         # (noff, 6, C, cap, cap) pair blocks
     ff_factors: object     # cff.ColFactors, or the stored far-field weights
     nf_f: object = None    # (3, C, cap) forces binned with the near field
     ff_f: object = None    # (3, C_ff, cap_ff) ditto on the far-field grid
@@ -429,122 +430,209 @@ def _ff_shared(config: StepConfig, ff_bins, box: Box):
     return None
 
 
-def prepare_banded(config: StepConfig, pos, box: Box, forces=None):
-    """Binnings, band windows and far-field factors; returns (ctx, the
-    overflow mask as a () int32 tensor).  ``forces`` (N, 3), when given,
-    are binned by both fills into ctx.nf_f / ctx.ff_f (zero in pad slots)."""
-    p = config.params
-    bs = config.band_spec
-    nf_bins, ff_bins, nf_f, ff_f = _bin_both(config, pos, box, bin_columns,
-                                             forces)
-    # the CUDA kernels read the stored half stencil's windows only; the
-    # plain matvec (CPU) gathers all 9 offsets
-    offs = bs.offsets if pos.device.type == "cpu" else bs.offsets[:bdn.N_HALF]
-    j0, n_valid, band_overflow, zsh = bdn.compute_windows(
-        nf_bins, bs, box, p.ewald_cut, offsets=offs)
-    factors = _ff_shared(config, ff_bins, box)
-    overflow = (_ovf(nf_bins.overflow, OVF_NF) | _ovf(ff_bins.overflow, OVF_FF)
-                | _ovf(band_overflow, OVF_BAND))
-    cls = None
-    if bs.classes is not None and pos.device.type != "cpu":
-        # the kernels pack A by occupancy class; the plain matvec (CPU)
-        # ignores the classes, as the JAX package's off-TPU path does
-        perm, inv, class_overflow = bdn.class_assignment(bs, n_valid)
-        cls = (perm, inv)
-        overflow = overflow | _ovf(class_overflow, OVF_CLASS)
-    return BandedCtx(nf_bins, ff_bins, j0, n_valid, zsh, factors,
-                     box.tilt_xy, nf_f=nf_f, ff_f=ff_f, cls=cls), overflow
+class _Engine:
+    """An engine's config and home device (config.device unless given)."""
+
+    two_rhs = False        # build_mv takes M F as a second right-hand side
+
+    def __init__(self, config: StepConfig, device=None):
+        self.config = config
+        self.device = torch.device(config.device if device is None
+                                   else device)
+
+    def build_mv(self, ctx, ft):
+        """The step's first near-field matvec, (ctx, M_real ft): a plain
+        ``mreal_t`` on what prepare built."""
+        return ctx, self.mreal_t(ctx, ft)
 
 
-def prepare_blocked(config: StepConfig, pos, box: Box, forces=None):
-    """Both binnings (3-D cells for the near field), the pair blocks and
-    the far-field factors; returns (ctx, the overflow mask)."""
-    p = config.params
-    nf_bins, ff_bins, nf_f, ff_f = _bin_both(config, pos, box, bin_particles,
-                                             forces)
-    blocks = bnf.build_pair_blocks(nf_bins, box, config.nf_spec, config.cheb,
-                                   p.ewald_cut, p.ewald_dr)
-    factors = _ff_shared(config, ff_bins, box)
-    overflow = _ovf(nf_bins.overflow, OVF_NF) | _ovf(ff_bins.overflow, OVF_FF)
-    return BlockedCtx(nf_bins, ff_bins, blocks, factors, nf_f, ff_f), overflow
+class _CellEngine(_Engine):
+    """What the banded and blocked engines share: the near field's slots
+    are a cell binning's (3, C, cap), and the far field is the z-column
+    one (or the stored-weight one where config.colff_spec is None)."""
+
+    def f_slots_t(self, ctx, values):
+        """(N, 3) particle values -> (3, C, cap) slots."""
+        return vec_to_cells(ctx.nf_bins, _nf_bin_spec(self.config), values)
+
+    def slots_of_psi(self, ctx, generator, uniforms):
+        """psi (3, C, cap) in the near field's slots, zero in pad slots."""
+        spec = _nf_bin_spec(self.config)
+        mask = ctx.nf_bins.mask
+        u = noise.particle_noise_t((spec.n_cells_total, spec.cap),
+                                   mask.device, generator, uniforms)
+        return u * mask
+
+    def psi_result_to_particles(self, ctx, cells):
+        """(3, C, cap) slots -> (N, 3)."""
+        return vec_from_cells(ctx.nf_bins, _nf_bin_spec(self.config), cells)
+
+    def spread(self, ctx, box: Box):
+        """The binned forces ctx.ff_f onto the grid (3, Nx, Ny, Nz)."""
+        cfg = self.config
+        if cfg.colff_spec is not None:
+            return cff.spread_col_kernel(ctx.ff_f, cfg.colff_spec, cfg.params,
+                                         ctx.ff_factors)
+        return bff.spread_blocked(ctx.ff_bins, ctx.ff_f, box, cfg.ff_spec,
+                                  cfg.params, ctx.ff_factors)
+
+    def contract(self, ctx, box: Box, grid_v):
+        """Grid velocities (3, Nx, Ny, Nz) -> (N, 3)."""
+        cfg = self.config
+        u_cells = (cff.contract_col_kernel(grid_v, cfg.colff_spec, cfg.params,
+                                           ctx.ff_factors)
+                   if cfg.colff_spec is not None else bff.contract_blocked(
+                       ctx.ff_bins, grid_v, box, cfg.ff_spec, cfg.params,
+                       ctx.ff_factors))
+        return vec_from_cells(ctx.ff_bins, _ff_bin_spec(cfg), u_cells)
 
 
-def prepare_gather(config: StepConfig, pos, box: Box, forces=None):
-    """The neighbor list, its pair coefficients and the Gaussian taps;
-    returns (ctx, the overflow mask).  The engine works in particle
-    layout: ``forces`` (N, 3) are kept as they are (ctx.ff_f) and
-    transposed (ctx.nf_f)."""
-    p = config.params
-    nlist = build_neighbor_list(pos, box, config.nbr_spec)
-    coeffs = nearfield.precompute_pair_coeffs(
-        pos, nlist.idx, box, ewald_table_on(p, pos.device), p.ewald_cut,
-        p.ewald_dr, p.ewald_n)
-    taps = farfield.compute_taps(pos, box, p)
-    nf_f = None if forces is None else forces.t()
-    return (GatherCtx(coeffs, taps, nf_f, forces),
-            _ovf(nlist.overflow, OVF_NBR))
+class BandedEngine(_CellEngine):
+    """The banded engine: windows per step, the fused build of A with the
+    first matvec (one or two right-hand sides), the stored-A matvec."""
+
+    two_rhs = True
+
+    def prepare(self, pos, box: Box, forces=None):
+        """Binnings, band windows and far-field factors; returns (ctx, the
+        overflow mask as a () int32 tensor).  ``forces`` (N, 3), when
+        given, are binned by both fills into ctx.nf_f / ctx.ff_f (zero in
+        pad slots)."""
+        cfg = self.config
+        bs = cfg.band_spec
+        nf_bins, ff_bins, nf_f, ff_f = _bin_both(cfg, pos, box, bin_columns,
+                                                 forces)
+        # the CUDA kernels read the stored half stencil's windows only; the
+        # plain matvec (CPU) gathers all 9 offsets
+        offs = (bs.offsets if pos.device.type == "cpu"
+                else bs.offsets[:bdn.N_HALF])
+        j0, n_valid, band_overflow, zsh = bdn.compute_windows(
+            nf_bins, bs, box, cfg.params.ewald_cut, offsets=offs)
+        factors = _ff_shared(cfg, ff_bins, box)
+        overflow = (_ovf(nf_bins.overflow, OVF_NF)
+                    | _ovf(ff_bins.overflow, OVF_FF)
+                    | _ovf(band_overflow, OVF_BAND))
+        cls = None
+        if bs.classes is not None and pos.device.type != "cpu":
+            # the kernels pack A by occupancy class; the plain matvec (CPU)
+            # ignores the classes, as the JAX package's off-TPU path does
+            perm, inv, class_overflow = bdn.class_assignment(bs, n_valid)
+            cls = (perm, inv)
+            overflow = overflow | _ovf(class_overflow, OVF_CLASS)
+        return BandedCtx(nf_bins, ff_bins, j0, n_valid, zsh, factors,
+                         box.tilt_xy, nf_f=nf_f, ff_f=ff_f, cls=cls), overflow
+
+    def _band_args(self, ctx: BandedCtx):
+        p = self.config.params
+        return (ctx.nf_bins, ctx.tilt, self.config.band_spec, self.config.cheb,
+                p.L, p.ewald_cut, p.ewald_dr, ctx.j0, ctx.n_valid, ctx.zsh)
+
+    def build_mv(self, ctx, ft):
+        """The fused build of A + matvec, for ft (3, C, S) or two
+        right-hand sides (6, C, S): (ctx with its blocks, M_real ft)."""
+        blocks, u = bdn.build_mv_banded(*self._band_args(ctx), ft,
+                                        self.config.params.self_mobility,
+                                        pack=ctx.cls)
+        return ctx._replace(blocks=blocks), u
+
+    def mreal_t(self, ctx, cells):
+        """M_real cells, (3, C, S) or (6, C, S), from the stored A."""
+        return bdn.matvec_banded(ctx.blocks, *self._band_args(ctx), cells,
+                                 self.config.params.self_mobility,
+                                 pack=ctx.cls)
+
+    def mreal_t2(self, ctx, cells):
+        """The two-RHS matvec (6, C, S) on one read of A."""
+        if cells.shape[0] != 6:
+            raise ValueError("mreal_t2 takes two right-hand sides (6, C, S)")
+        return self.mreal_t(ctx, cells)
 
 
-def prepare(config: StepConfig, pos, box: Box, forces=None):
-    """The engine's per-step data: (ctx, the overflow mask)."""
-    fn = {"banded": prepare_banded, "blocked": prepare_blocked,
-          "gather": prepare_gather}[config.engine]
-    return fn(config, pos, box, forces)
+class BlockedEngine(_CellEngine):
+    """The blocked engine: pair blocks of a 3-D cell binning per step."""
+
+    def prepare(self, pos, box: Box, forces=None):
+        """Both binnings (3-D cells for the near field), the pair blocks
+        and the far-field factors; returns (ctx, the overflow mask)."""
+        cfg, p = self.config, self.config.params
+        nf_bins, ff_bins, nf_f, ff_f = _bin_both(cfg, pos, box, bin_particles,
+                                                 forces)
+        blocks = bnf.build_pair_blocks(nf_bins, box, cfg.nf_spec, cfg.cheb,
+                                       p.ewald_cut, p.ewald_dr)
+        factors = _ff_shared(cfg, ff_bins, box)
+        overflow = (_ovf(nf_bins.overflow, OVF_NF)
+                    | _ovf(ff_bins.overflow, OVF_FF))
+        ctx = BlockedCtx(nf_bins, ff_bins, blocks, factors, nf_f, ff_f)
+        return ctx, overflow
+
+    def mreal_t(self, ctx, cells):
+        """M_real cells (3, C, cap)."""
+        return bnf.matvec_cells(ctx.blocks, self.config.nf_spec, ctx.nf_bins,
+                                cells, self.config.params.self_mobility)
 
 
-def _band_args(config: StepConfig, ctx: BandedCtx):
-    p = config.params
-    return (ctx.nf_bins, ctx.tilt, config.band_spec, config.cheb, p.L,
-            p.ewald_cut, p.ewald_dr, ctx.j0, ctx.n_valid, ctx.zsh)
+class GatherEngine(_Engine):
+    """The gather engine: a neighbor list, its pair coefficients and the
+    Gaussian taps per step; vectors in particle layout (3, N)."""
+
+    def prepare(self, pos, box: Box, forces=None):
+        """The neighbor list, its pair coefficients and the Gaussian taps;
+        returns (ctx, the overflow mask).  ``forces`` (N, 3) are kept as
+        they are (ctx.ff_f) and transposed (ctx.nf_f)."""
+        cfg, p = self.config, self.config.params
+        nlist = build_neighbor_list(pos, box, cfg.nbr_spec)
+        coeffs = nearfield.precompute_pair_coeffs(
+            pos, nlist.idx, box, ewald_table_on(p, pos.device), p.ewald_cut,
+            p.ewald_dr, p.ewald_n)
+        taps = farfield.compute_taps(pos, box, p)
+        nf_f = None if forces is None else forces.t()
+        ctx = GatherCtx(coeffs, taps, nf_f, forces)
+        return ctx, _ovf(nlist.overflow, OVF_NBR)
+
+    def mreal_t(self, ctx, ft):
+        """M_real ft, (3, N) in and out."""
+        return nearfield.mreal_matvec_t(ctx.coeffs, ft,
+                                        self.config.params.self_mobility)
+
+    def f_slots_t(self, ctx, values):
+        return values.t()
+
+    def slots_of_psi(self, ctx, generator, uniforms):
+        """psi (3, N)."""
+        nf = ctx.coeffs.nbr
+        return noise.particle_noise_t((nf.shape[0],), nf.device, generator,
+                                      uniforms)
+
+    def psi_result_to_particles(self, ctx, cells):
+        return cells.t()
+
+    def spread(self, ctx, box: Box):
+        return farfield.spread(ctx.taps, ctx.ff_f, self.config.params)
+
+    def contract(self, ctx, box: Box, grid_v):
+        return farfield.contract(ctx.taps, grid_v, self.config.params)
 
 
-def build_mv(config: StepConfig, ctx, ft):
-    """The step's first near-field matvec, (ctx, M_real ft).  Banded: the
-    fused build of A + matvec, for ft (3, C, S) or two right-hand sides
-    (6, C, S); blocked and gather: a plain ``mreal_t`` on what prepare
-    built."""
-    if config.engine != "banded":
-        return ctx, mreal_t(config, ctx, ft)
-    blocks, u = bdn.build_mv_banded(*_band_args(config, ctx), ft,
-                                    config.params.self_mobility,
-                                    pack=ctx.cls)
-    return ctx._replace(blocks=blocks), u
+_ENGINES = {"banded": BandedEngine, "blocked": BlockedEngine,
+            "gather": GatherEngine}
 
 
-def mreal_t(config: StepConfig, ctx, cells):
-    """M_real cells (3, C, cap) from the step's stored near-field data (on
-    the gather engine, (3, N) in and out)."""
-    mob = config.params.self_mobility
-    if config.engine == "gather":
-        return nearfield.mreal_matvec_t(ctx.coeffs, cells, mob)
-    if config.engine == "blocked":
-        return bnf.matvec_cells(ctx.blocks, config.nf_spec, ctx.nf_bins,
-                                cells, mob)
-    return bdn.matvec_banded(ctx.blocks, *_band_args(config, ctx), cells, mob,
-                             pack=ctx.cls)
+def engine_of(config: StepConfig):
+    """The config's own engine on config.device (the one ``step``,
+    ``mobility`` and ``brownian_displacement`` run)."""
+    return _ENGINES[config.engine](config)
 
 
-def _far_field(config: StepConfig, ctx, box: Box, noise_args):
+def _far_field(config: StepConfig, eng, ctx, box: Box, device, noise_args):
     """Wave-space velocities (N, 3): [spread the binned forces ctx.ff_f ->
     rfft -> Green] (+ Hermitian noise when ``noise_args`` = (T, dt,
-    generator, uniforms)) -> irfft -> contract.  The gather engine's taps,
-    else the z-column far field where config.colff_spec is set, else the
-    stored-weight one."""
+    generator, uniforms)) -> irfft -> contract."""
     p = config.params
-    col, blk = config.colff_spec, config.ff_spec
-    gather = config.engine == "gather"
-    dev = ctx.taps.weights.device if gather else ctx.ff_bins.px.device
-    kvec, W = gridk_arrays(p, box.tilt_xy, dev, half=True)
+    kvec, W = gridk_arrays(p, box.tilt_xy, device, half=True)
     ghat = None
     if ctx.ff_f is not None:
-        if gather:
-            grid = farfield.spread(ctx.taps, ctx.ff_f, p)
-        elif col is not None:
-            grid = cff.spread_col_kernel(ctx.ff_f, col, p, ctx.ff_factors)
-        else:
-            grid = bff.spread_blocked(ctx.ff_bins, ctx.ff_f, box, blk, p,
-                                      ctx.ff_factors)
-        ghat = apply_green(torch.fft.rfftn(grid, dim=(1, 2, 3)), kvec, W)
+        ghat = apply_green(torch.fft.rfftn(eng.spread(ctx, box),
+                                           dim=(1, 2, 3)), kvec, W)
     if noise_args is not None:
         T, dt, generator, uniforms = noise_args
         nh = noise.wave_space_noise_hat_half(p, kvec, W, T, dt, generator,
@@ -552,19 +640,7 @@ def _far_field(config: StepConfig, ctx, box: Box, noise_args):
         ghat = nh if ghat is None else ghat + nh
     grid_v = torch.fft.irfftn(ghat, s=(p.Nx, p.Ny, p.Nz),
                               dim=(1, 2, 3)).to(torch.float32)
-    if gather:
-        return farfield.contract(ctx.taps, grid_v, p)
-    u_cells = (cff.contract_col_kernel(grid_v, col, p, ctx.ff_factors)
-               if col is not None else bff.contract_blocked(
-                   ctx.ff_bins, grid_v, box, blk, p, ctx.ff_factors))
-    return vec_from_cells(ctx.ff_bins, _ff_bin_spec(config), u_cells)
-
-
-def _nf_back(config: StepConfig, ctx, cells):
-    """(3, C, cap) near-field slots (gather: (3, N)) -> (N, 3)."""
-    if config.engine == "gather":
-        return cells.t()
-    return vec_from_cells(ctx.nf_bins, _nf_bin_spec(config), cells)
+    return eng.contract(ctx, box, grid_v)
 
 
 def _velocity_scale(T, dt) -> float:
@@ -577,20 +653,6 @@ def _as_f32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.float32)
     return torch.from_numpy(np.array(x, np.float32)).to(device)
-
-
-def _psi(config: StepConfig, ctx, generator, uniforms):
-    """psi (3, C, cap) in the near field's slots, zero in pad slots (gather:
-    (3, N))."""
-    if config.engine == "gather":
-        nf = ctx.coeffs.nbr
-        return noise.particle_noise_t((nf.shape[0],), nf.device, generator,
-                                      uniforms)
-    spec = _nf_bin_spec(config)
-    mask = ctx.nf_bins.mask
-    u = noise.particle_noise_t((spec.n_cells_total, spec.cap), mask.device,
-                               generator, uniforms)
-    return u * mask
 
 
 def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
@@ -607,6 +669,15 @@ def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
 
     Returns (new_state, info) with info velocities (N, 3), nbr_overflow
     (() int32 tensor) and m_lanczos (int)."""
+    return step_impl(config, engine_of(config), state, forces, T, dt,
+                     shear_rate, new_tilt, uniforms)
+
+
+def step_impl(config: StepConfig, eng, state: State, forces, T, dt,
+              shear_rate, new_tilt=None, uniforms=None):
+    """``step`` with the engine ``eng`` (``engine_of(config)``, or a halo
+    or sharded engine from ``parallel/``); the state lies on its home
+    device."""
     p = config.params
     pos = state.pos
     box = _box_of(config, state.tilt_xy)
@@ -619,37 +690,39 @@ def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
         f = (torch.zeros_like(pos) if forces is None
              else _as_f32(forces, pos.device))
 
-    ctx, overflow = prepare(config, pos, box, f)
-    u = _far_field(config, ctx, box,
+    ctx, overflow = eng.prepare(pos, box, f)
+    u = _far_field(config, eng, ctx, box, pos.device,
                    (T, dt, gen, u_wave) if config.thermal else None)
 
     m_used = state.m_lanczos
     if config.thermal:
-        psi = _psi(config, ctx, gen, u_psi)
+        psi = eng.slots_of_psi(ctx, gen, u_psi)
         vnorm = torch.sqrt(torch.sum(psi * psi))
-        if config.has_forces and config.engine == "banded":
+        if config.has_forces and eng.two_rhs:
             # M F rides the build as a second right-hand side: one pass
             # over A covers the build, M F and the first Lanczos matvec
-            ctx, u0 = build_mv(config, ctx, torch.cat([ctx.nf_f, psi / vnorm]))
-            u = u + _nf_back(config, ctx, u0[0:3])
+            ctx, u0 = eng.build_mv(ctx, torch.cat([ctx.nf_f, psi / vnorm]))
+            u = u + eng.psi_result_to_particles(ctx, u0[0:3])
             w0 = u0[3:6]
         else:
-            ctx, w0 = build_mv(config, ctx, psi / vnorm)
+            ctx, w0 = eng.build_mv(ctx, psi / vnorm)
             if config.has_forces:
                 # blocked and gather: M F is a matvec of its own on the
                 # forces in the engine's slots
-                u = u + _nf_back(config, ctx, mreal_t(config, ctx, ctx.nf_f))
+                u = u + eng.psi_result_to_particles(
+                    ctx, eng.mreal_t(ctx, ctx.nf_f))
         probe = int(state.step % M_SHRINK_PERIOD == 0)
         u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
-            lambda vt: mreal_t(config, ctx, vt), psi, p.error,
+            lambda vt: eng.mreal_t(ctx, vt), psi, p.error,
             max(state.m_lanczos - probe, 2), config.m_max, w0=w0,
         )
         if hit_cap:
             overflow = overflow | OVF_LANCZOS
-        u = u + _velocity_scale(T, dt) * _nf_back(config, ctx, u_sqrt)
+        u = u + _velocity_scale(T, dt) * eng.psi_result_to_particles(
+            ctx, u_sqrt)
     else:
-        ctx, uF = build_mv(config, ctx, ctx.nf_f)
-        u = u + _nf_back(config, ctx, uF)
+        ctx, uF = eng.build_mv(ctx, ctx.nf_f)
+        u = u + eng.psi_result_to_particles(ctx, uF)
 
     vel = u.clone()
     vel[:, 0] += float(np.float32(shear_rate)) * pos[:, 1]
@@ -671,19 +744,20 @@ def brownian_displacement(config: StepConfig, pos, tilt_xy, step: int,
     draws it (wave part through the FFT pipeline, real part by Lanczos).
     Returns (u (N, 3), m_used, overflow mask)."""
     p = config.params
-    pos = _as_f32(pos, config.device)
+    eng = engine_of(config)
+    pos = _as_f32(pos, eng.device)
     box = _box_of(config, tilt_xy)
     gen = step_generator(config, step)
-    ctx, overflow = prepare(config, pos, box)
-    u_wave = _far_field(config, ctx, box, (T, dt, gen, None))
-    psi = _psi(config, ctx, gen, None)
+    ctx, overflow = eng.prepare(pos, box)
+    u_wave = _far_field(config, eng, ctx, box, pos.device, (T, dt, gen, None))
+    psi = eng.slots_of_psi(ctx, gen, None)
     vnorm = torch.sqrt(torch.sum(psi * psi))
-    ctx, w0 = build_mv(config, ctx, psi / vnorm)
+    ctx, w0 = eng.build_mv(ctx, psi / vnorm)
     u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
-        lambda vt: mreal_t(config, ctx, vt), psi, p.error, m_start,
+        lambda vt: eng.mreal_t(ctx, vt), psi, p.error, m_start,
         config.m_max, w0=w0,
     )
-    u_real = _velocity_scale(T, dt) * _nf_back(config, ctx, u_sqrt)
+    u_real = _velocity_scale(T, dt) * eng.psi_result_to_particles(ctx, u_sqrt)
     if hit_cap:
         overflow = overflow | OVF_LANCZOS
     return u_wave + u_real, m_used, overflow
@@ -695,10 +769,17 @@ def mobility(config: StepConfig, pos, forces, tilt_xy=0.0):
 
     Returns (velocities (N, 3), the capacity overflow mask as a () int32
     tensor)."""
-    pos = _as_f32(pos, config.device)
-    forces = _as_f32(forces, config.device)
+    return mobility_impl(config, engine_of(config), pos, forces, tilt_xy)
+
+
+def mobility_impl(config: StepConfig, eng, pos, forces, tilt_xy=0.0):
+    """``mobility`` with the engine ``eng``, on its home device
+    ``eng.device``."""
+    pos = _as_f32(pos, eng.device)
+    forces = _as_f32(forces, eng.device)
     box = _box_of(config, tilt_xy)
-    ctx, overflow = prepare(config, pos, box, forces)
-    ctx, u0 = build_mv(config, ctx, ctx.nf_f)
-    u_real = _nf_back(config, ctx, u0)
-    return u_real + _far_field(config, ctx, box, None), overflow
+    ctx, overflow = eng.prepare(pos, box, forces)
+    ctx, u0 = eng.build_mv(ctx, ctx.nf_f)
+    u_real = eng.psi_result_to_particles(ctx, u0)
+    return u_real + _far_field(config, eng, ctx, box, pos.device,
+                               None), overflow

@@ -277,7 +277,7 @@ def class_assignment(spec: BandSpec, n_valid: torch.Tensor):
 
 
 def compute_windows(bins: CellBins, spec: BandSpec, box: Box, rcut: float,
-                    offsets: tuple | None = None):
+                    col_mask=None, offsets: tuple | None = None):
     """Per-(offset, column, tile) band window starts in cyclic rank
     coordinates: rank k < n_valid is slot k, rank n_valid + k is slot k one
     period up (z + Lz), so a band that wraps the periodic seam stays
@@ -286,8 +286,12 @@ def compute_windows(bins: CellBins, spec: BandSpec, box: Box, rcut: float,
     Returns (j0 (O, C, T) int32, n_valid (C,) int32, band_overflow () bool,
     zsh (O, C, T) f32): overflow is set when a tile's band exceeds
     min(W, n_valid); zsh in {-Lz, 0, +Lz} is the window's z image shift.
-    ``offsets``: the stencil offsets to compute (default: all 9; the CUDA
-    kernels read only the first N_HALF)."""
+    ``col_mask``: (C,) bool, the columns whose tiles may raise the
+    overflow (the halo engine's interior columns; its halo columns'
+    windows wrap wrongly at the slab's edges, and their outputs are
+    dropped); None: every column.  ``offsets``: the stencil offsets to
+    compute (default: all 9; the CUDA kernels read only the first
+    N_HALF)."""
     S, R, W = spec.bins.cap, spec.rows, spec.window
     T = S // R
     Lz = box.L[2]
@@ -306,6 +310,8 @@ def compute_windows(bins: CellBins, spec: BandSpec, box: Box, rcut: float,
     zb = zb + shift
     ze = z_hi + rcut + shift
     valid_tile = torch.isfinite(z_lo)
+    if col_mask is not None:
+        valid_tile = valid_tile & col_mask[:, None]
 
     if offsets is None:
         offsets = spec.offsets

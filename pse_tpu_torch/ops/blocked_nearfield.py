@@ -164,8 +164,13 @@ def matvec_cells(
 ) -> torch.Tensor:
     """u = M_real f in cell layout (3, C, cap): the self term, then per
     offset the forward and (offsets other than (0,0,0)) the transposed
-    product, gathered back to the cells they belong to."""
+    product, gathered back to the cells they belong to.  ``spec.offsets``
+    may be a contiguous part of the stencil (the blocks of one device on a
+    sharded engine): u is then that part's sum, with the self term as
+    given (0.0 for none)."""
     noff, _, C, cap, _ = blocks.shape
+    # the blocks of (0,0,0), which only apply forward, come first if at all
+    first_t = int(tuple(spec.offsets[0]) == (0, 0, 0))
     nbr = _neighbour_cells(spec.bins, tuple(spec.offsets), f_cells.device)
     f = f_cells.permute(1, 2, 0)                     # (C, cap, 3) view
     u = (self_mobility * f_cells * bins.mask).permute(1, 2, 0)
@@ -175,7 +180,7 @@ def matvec_cells(
         o1 = min(o0 + group, noff)
         A = blocks[o0:o1].to(torch.float32)
         u = u + _apply(A, f[nbr[0, o0:o1]], False).sum(0)
-        t0 = max(o0, 1)                              # (0,0,0): forward only
+        t0 = max(o0, first_t)                        # (0,0,0): forward only
         if t0 < o1:
             w = _apply(A[t0 - o0:], f.expand(o1 - t0, C, cap, 3), True)
             # u(c) += w_o(c - o): a gather, no scattered sums

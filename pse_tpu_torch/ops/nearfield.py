@@ -80,10 +80,12 @@ def precompute_pair_coeffs(pos: torch.Tensor, nbr_idx: torch.Tensor,
 
 
 def mreal_matvec_t(coeffs: PairCoeffs, ft: torch.Tensor,
-                   self_mobility: float) -> torch.Tensor:
+                   self_mobility: float, row0: int = 0) -> torch.Tensor:
     """U = M_real F in the transposed (3, N) layout, the Lanczos matvec:
     u_i = self F_i + sum_j [UF1 F_j + (UF2 - UF1)(r-hat . F_j) r-hat]
-    (Mobility.cu:632, 673-677)."""
+    (Mobility.cu:632, 673-677).  ``coeffs`` may hold a contiguous range of
+    rows from ``row0`` (one device's rows on a sharded engine): u is then
+    (3, rows) for those particles, each row summed as in the whole."""
     ft_pad = torch.cat([ft, ft.new_zeros((3, 1))], dim=1)    # (3, N+1)
     fx = ft_pad[0][coeffs.nbr]                               # (N, K)
     fy = ft_pad[1][coeffs.nbr]
@@ -93,7 +95,8 @@ def mreal_matvec_t(coeffs: PairCoeffs, ft: torch.Tensor,
     ux = torch.sum(coeffs.imrr * fx + brf * coeffs.ex, dim=1)
     uy = torch.sum(coeffs.imrr * fy + brf * coeffs.ey, dim=1)
     uz = torch.sum(coeffs.imrr * fz + brf * coeffs.ez, dim=1)
-    return self_mobility * ft + torch.stack([ux, uy, uz], dim=0)
+    rows = ft[:, row0:row0 + coeffs.nbr.shape[0]]
+    return self_mobility * rows + torch.stack([ux, uy, uz], dim=0)
 
 
 def mreal_matvec(coeffs: PairCoeffs, forces: torch.Tensor,

@@ -8,8 +8,9 @@ dependencies; the repository's conftest imports jax, so run it there with
 
 Sizes are small (the banded test config, N = 1080 in L = 24, N = 5300 in
 L = 40, the oracle gate's N = 2048 in L = 26.71 with its 27^3 grid and
-3 x 3 far-field columns, and the gather engine's fallback box, N = 107 in
-L = 10); chip_smoke.py holds the kernels at the main path's shapes.
+3 x 3 far-field columns, the gather engine's fallback box, N = 107 in
+L = 10, and the halo's, N = 4800 in L = 33); chip_smoke.py holds the
+kernels at the main path's shapes.
 """
 
 import dataclasses
@@ -735,7 +736,97 @@ def test_class_packed_overflow_flags_and_stays_in_bounds(cuda):
     ocfg = dataclasses.replace(cfg, band_spec=bs._replace(
         classes=((2, C - 1), (t_cap, 1))))
     forces = torch.randn(pos.shape, device=cuda)
-    ctx, mask = pi.prepare(ocfg, pos, box, forces)
+    eng = pi.engine_of(ocfg)
+    ctx, mask = eng.prepare(pos, box, forces)
     assert int(mask) & pi.OVF_CLASS
-    _, u = pi.build_mv(ocfg, ctx, ctx.nf_f)
+    _, u = eng.build_mv(ctx, ctx.nf_f)
     assert bool(torch.isfinite(u).all())
+
+
+def _halo_problem(dtype, slabs=2, seed=1):
+    """tests/test_halo.py's box (N = 4800, L = 33) at ``slabs`` slabs:
+    (config, positions, forces), and two slab classes that fit it."""
+    from pse_tpu_torch.ops import banded_nearfield as b
+
+    n, L = 4800, 33.0
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
+    forces = rng.normal(size=(n, 3)).astype(np.float32)
+    cfg = pi.make_config(make_params(xi=0.5, error=1e-3, L=L), n,
+                         engine="banded", shard_slabs=slabs, seed=3,
+                         block_dtype=dtype, ff_weight_dtype=dtype,
+                         device="cuda")
+    bs = cfg.band_spec
+    ncx, ncy, _ = bs.bins.n_cells
+    counts = b.make_slab_counts(bs, slabs, b.measure_col_counts(
+        bs, pos, cfg.params.L))
+    low = max(int(np.sort(-(-np.maximum(c, 1) // bs.rows))[::-1][2])
+              for c in counts)
+    classes = ((low, (ncx // slabs + 2) * ncy - 2), (bs.bins.cap // bs.rows,
+                                                     2))
+    return cfg, pos, forces, classes
+
+
+@pytest.mark.parametrize("dtype,bound", [("float32", 1e-4),
+                                         ("bfloat16", 2e-3)])
+def test_halo_two_slabs_match_one_device_on_card(cuda, dtype, bound):
+    """The halo engine at D = 2 slabs on one card against the one-device
+    engine: mobility (tilts 0 and 0.3) and the thermal step with forces at
+    equal uniforms within ``bound`` (2-norm); with slab classes bitwise
+    without; the kernels launch D and D (m - 1) times per step."""
+    from pse_tpu_torch.parallel import halo, sharding
+
+    cfg, pos, forces, classes = _halo_problem(dtype)
+    mesh = sharding.make_mesh([cuda] * 2)
+    no_cls = dataclasses.replace(cfg, band_spec=cfg.band_spec._replace(
+        slab_classes=None))
+    with_cls = dataclasses.replace(cfg, band_spec=cfg.band_spec._replace(
+        slab_classes=classes))
+    for tilt in (0.0, 0.3):
+        u1, o1 = pi.mobility(no_cls, pos, forces, tilt)
+        u, o = halo.make_halo_mobility(no_cls, mesh)(pos, forces, tilt)
+        uc, oc = halo.make_halo_mobility(with_cls, mesh)(pos, forces, tilt)
+        assert int(o) == int(oc) == int(o1) == 0
+        assert _rel(u, u1) < bound
+        assert torch.equal(u, uc)
+    rng = np.random.default_rng(5)
+    bs, p = cfg.band_spec.bins, cfg.params
+    draws = (rng.uniform(-1.7, 1.7, (3, bs.n_cells_total, bs.cap))
+             .astype(np.float32),
+             rng.uniform(-1.2, 1.2, (6, p.Nx, p.Ny, p.Nz // 2 + 1))
+             .astype(np.float32))
+    st = pi.make_state(pos, 3, 0.3, "cuda")
+    f = torch.as_tensor(forces, device=cuda)
+    s1, i1 = pi.step(no_cls, st, f, 1.0, 1e-3, 0.5, None, uniforms=draws)
+    before = (bdn.build_mv_banded.launches, bdn.matvec_banded.launches)
+    s2, i2 = halo.make_halo_step(with_cls, mesh)(st, f, 1.0, 1e-3, 0.5,
+                                                 uniforms=draws)
+    assert (bdn.build_mv_banded.launches - before[0],
+            bdn.matvec_banded.launches - before[1]) == (
+                2, 2 * (i2["m_lanczos"] - 1))
+    assert i1["m_lanczos"] == i2["m_lanczos"] and int(s2.nbr_overflow) == 0
+    assert _rel(s2.pos - st.pos, s1.pos - st.pos) < bound
+
+
+def test_sharded_gather_is_bitwise_one_device_on_card(cuda):
+    """The gather engine's rows split over 4 shards of one card: the
+    thermal step with forces and mobility bitwise the one-device ones."""
+    from pse_tpu_torch.parallel import sharding
+
+    n, L = 1080, 24.0
+    rng = np.random.default_rng(2)
+    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
+    f = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                        device=cuda)
+    cfg = pi.make_config(make_params(xi=0.5, error=1e-3, L=L), n,
+                         engine="gather", seed=4, device="cuda")
+    mesh = sharding.make_mesh([cuda] * 4)
+    st = pi.make_state(pos, 2, 0.03, "cuda")
+    s1, i1 = pi.step(cfg, st, f, 1.0, 1e-3, 0.2, 0.031)
+    s2, i2 = sharding.make_sharded_step(cfg, mesh)(st, f, 1.0, 1e-3, 0.2,
+                                                   0.031)
+    assert torch.equal(s1.pos, s2.pos)
+    assert torch.equal(i1["velocities"], i2["velocities"])
+    assert torch.equal(pi.mobility(cfg, pos, f, 0.03)[0],
+                       sharding.make_sharded_mobility(cfg, mesh)(pos, f,
+                                                                 0.03)[0])

@@ -435,7 +435,8 @@ def test_port_imports_neither_jax_nor_pse_tpu():
     assert {f"pse_tpu_torch/{m}.py" for m in (
         "neighbors", "ops/nearfield", "ops/farfield", "utils/gsd",
         "utils/trajectory", "utils/backend", "utils/cache",
-        "examples/oscillatory_shear")} <= names
+        "examples/oscillatory_shear", "parallel/halo",
+        "parallel/sharding")} <= names
     for path in files:
         text = path.read_text()
         bad = [m.group(0).strip() for m in _FORBIDDEN.finditer(text)
@@ -468,9 +469,10 @@ def test_kernel_wrappers_take_the_plain_path_on_cpu():
                     pc.fill_cells_reference(*ops, spec.n_cells_total,
                                             spec.cap, vals)):
         assert torch.equal(a, b)
-    ctx, ovf = pi.prepare_banded(tcfg, pos, box)
+    eng = pi.engine_of(tcfg)
+    ctx, ovf = eng.prepare(pos, box)
     assert int(ovf) == 0
-    ctx, u = pi.build_mv(tcfg, ctx, torch.ones((3,) + ctx.nf_bins.px.shape))
+    ctx, u = eng.build_mv(ctx, torch.ones((3,) + ctx.nf_bins.px.shape))
     assert ctx.blocks is None and torch.isfinite(u).all()
     after = (pc.fill_cells.launches, pb.build_mv_banded.launches,
              pb.matvec_banded.launches, pf.contract_col_kernel.launches)

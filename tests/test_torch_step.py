@@ -4,9 +4,10 @@ One full thermal, force-free banded step with JAX's own draws injected (the
 psi and wave uniforms ``integrator.step`` draws from fold_in(PRNGKey(
 hash_seed(seed)), step)), bitwise reruns, the Brownian covariance against
 ``pse_tpu``'s mobility, the Simulation loop and checkpoints written by
-``pse_tpu``, halo slabs raising and the engine choice (the with-forces and
-athermal paths are held to ``pse_tpu`` in test_torch_forces.py).  CPU only: the port's
-kernel wrappers run their plain versions here.
+``pse_tpu``, and the engine choice with and without halo slabs (the
+with-forces and athermal paths are held to ``pse_tpu`` in
+test_torch_forces.py).  CPU only: the port's kernel wrappers run their
+plain versions here.
 """
 
 import numpy as np
@@ -187,14 +188,21 @@ def test_simulation_runs_sheared_and_resumes_a_pse_tpu_checkpoint(tmp_path):
     assert sim.snapshot()["step"] == 41
 
 
-def test_unported_paths_raise_not_implemented():
-    """Halo slabs still raise, naming ROADMAP; the gather engine, the
-    fallbacks of boxes too small to band or block, the blocked engine and
-    PSEv1.group run, choosing pse_tpu's engine and nbr_spec."""
+def test_halo_slabs_and_engine_choice_match_jax():
+    """make_config(shard_slabs=2) gives pse_tpu's engine and band_spec
+    (here banded falls back to blocked: ncx = 3 rounds down to 2; at L = 33
+    it bands with ncx = 4); the gather engine, the fallbacks of boxes too
+    small to band or block, the blocked engine and PSEv1.group run,
+    choosing pse_tpu's engine and nbr_spec."""
     tp = P.make_params(xi=0.5, error=1e-3, L=L)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):   # halo slabs
-        pi.make_config(tp, N, engine="banded", shard_slabs=2, device="cpu")
     jp = J.make_params(xi=0.5, error=1e-3, L=L)
+    for n, box, expect in ((N, L, "blocked"), (4800, 33.0, "banded")):
+        cfg = pi.make_config(P.make_params(xi=0.5, error=1e-3, L=box), n,
+                             engine="banded", shard_slabs=2, device="cpu")
+        jcfg = ji.make_config(J.make_params(xi=0.5, error=1e-3, L=box), n,
+                              engine="banded", shard_slabs=2)
+        assert cfg.engine == jcfg.engine == expect
+        assert cfg.band_spec == jcfg.band_spec and cfg.shard_slabs == 2
     for n, engine, expect in ((N, "blocked", "blocked"),
                               (64, "banded", "blocked"),       # 64: sparse
                               (N, "gather", "gather")):
