@@ -929,42 +929,43 @@ def _sync_idle(sim, steps=3):
 
 
 def _step_wrappers(forces: bool, engine: str = "banded"):
-    """The kernel wrappers a main-path step launches (on the blocked
-    engine: the fills, the contract and, with forces, the spread; on the
-    gather engine: the fill of the neighbor list's cell binning)."""
-    from pse_tpu_torch.cellbins import fill_cells
-    from pse_tpu_torch.ops.banded_nearfield import build_mv_banded, matvec_banded
-    from pse_tpu_torch.ops.column_farfield import (contract_col_kernel,
-                                                   spread_moments_kernel)
-
+    """The kernel wrappers a main-path step launches, by their launch
+    counters (on the blocked engine: the fills, the contract and, with
+    forces, the spread; on the gather engine: the fill of the neighbor
+    list's cell binning)."""
     if engine == "gather":
-        return {"fill_cells": fill_cells}
-    w = {"fill_cells": fill_cells, "contract_col": contract_col_kernel}
+        return {"fill_cells": "launch.fill_cells"}
+    w = {"fill_cells": "launch.fill_cells",
+         "contract_col": "launch.contract_col_kernel"}
     if engine == "banded":
-        w.update(build_mv_banded=build_mv_banded, matvec_banded=matvec_banded)
+        w.update(build_mv_banded="launch.build_mv_banded",
+                 matvec_banded="launch.matvec_banded")
     if forces:
-        w["spread_col"] = spread_moments_kernel
+        w["spread_col"] = "launch.spread_moments_kernel"
     return w
 
 
 def _all_wrappers():
-    from pse_tpu_torch.ops.banded_nearfield import build_banded_blocks
-
-    return {**_step_wrappers(True), "build_banded_blocks": build_banded_blocks}
+    return {**_step_wrappers(True),
+            "build_banded_blocks": "launch.build_banded_blocks"}
 
 
 def _counted(ph, label, expected, fn):
-    """Run fn() with every kernel's launch count set to 0 just before and
-    read just after; each kernel named in ``expected`` must have launched."""
+    """Run fn() and count every kernel's launches in it (the counters of
+    ``pse_tpu_torch.trace`` read just before and just after); each kernel
+    named in ``expected`` must have launched."""
     import torch
+
+    from pse_tpu_torch import trace
 
     wrappers = _all_wrappers()
     torch.cuda.synchronize()
-    for w in wrappers.values():
-        w.launches = 0
+    before = trace.counters()
     out = fn()
     torch.cuda.synchronize()
-    launches = {k: w.launches for k, w in wrappers.items()}
+    after = trace.counters()
+    launches = {k: after.get(c, 0) - before.get(c, 0)
+                for k, c in wrappers.items()}
     print(f"  launches in the {label} run: {launches}")
     for k in expected:
         if launches[k] <= 0:

@@ -33,14 +33,21 @@ import numpy as np
 import torch
 
 from . import shear as shear_function
+from . import trace
 from .box import Box, make_box
 from .integrator import (
-    OVF_BAND, OVF_CLASS, OVF_FF, OVF_NBR, OVF_NF, State, StepConfig,
-    _size_slab_classes, grow_config, make_config, make_state, mobility,
-    state_from_arrays, step as _step,
+    OVF_BAND, OVF_CLASS, OVF_FF, OVF_LANCZOS, OVF_NBR, OVF_NF, State,
+    StepConfig, _size_slab_classes, grow_config, make_config, make_state,
+    mobility, state_from_arrays, step as _step,
 )
 from .ops import banded_nearfield as bdn
 from .params import make_params
+
+
+# the overflow mask's flags by name, as ``overflow.<name>`` counts them
+_OVF_FLAGS = (("OVF_NF", OVF_NF), ("OVF_BAND", OVF_BAND), ("OVF_FF", OVF_FF),
+              ("OVF_LANCZOS", OVF_LANCZOS), ("OVF_NBR", OVF_NBR),
+              ("OVF_CLASS", OVF_CLASS))
 
 
 @dataclasses.dataclass
@@ -243,7 +250,9 @@ class Simulation:
         """The hydrodynamic system's positions on the host (a group's
         rows)."""
         pos = state.pos if self._group is None else state.pos[self._group]
-        return pos.cpu().numpy()
+        trace.count("read.positions")
+        with trace.span("sync.positions"):
+            return pos.cpu().numpy()
 
     def _remeasure_classes(self, snapshot: State):
         """Occupancy classes sized anew from the snapshot's positions at its
@@ -291,37 +300,30 @@ class Simulation:
         regrows = 0
         while remaining > 0:
             chunk = min(self.sync_every, remaining)
-            snapshot = self.state
-            t0 = time.perf_counter()
-            state = self.state
-            ms = []
-            for _ in range(chunk):
-                state, info = self._advance(state)
-                ms.append(info["m_lanczos"])
-            flags = int(state.nbr_overflow)       # synchronizes the device
-            elapsed = time.perf_counter() - t0
-            if flags:
-                regrows += 1
-                if regrows > max_regrow:
-                    raise RuntimeError(
-                        f"capacity overflow persists after {max_regrow} "
-                        "regrows; the configuration density is outside what "
-                        f"the {self.config.engine} engine's layout can absorb"
-                    )
-                # grows what the mask names: OVF_NBR the neighbor list,
-                # OVF_NF / OVF_BAND / OVF_FF the cell caps and the band,
-                # OVF_LANCZOS m_max; OVF_CLASS drops the occupancy classes
-                self.config = grow_config(self.config, flags=flags)
-                if (flags & OVF_CLASS and self.config.band_spec is not None
-                        and self._class_regrows < 2):
-                    # the density drifted past the classes sized at
-                    # set_integrator: size them from the positions the
-                    # chunk restarts from (after two, keep one class)
-                    self._class_regrows += 1
-                    self._remeasure_classes(snapshot)
-                self.state = snapshot
-                self.metrics["overflow_retries"] += 1
-                continue
+            with trace.span("run.chunk"):
+                snapshot = self.state
+                t0 = time.perf_counter()
+                state = self.state
+                ms = []
+                for _ in range(chunk):
+                    state, info = self._advance(state)
+                    ms.append(info["m_lanczos"])
+                trace.count("read.overflow")
+                with trace.span("sync.overflow"):
+                    flags = int(state.nbr_overflow)   # synchronizes the device
+                elapsed = time.perf_counter() - t0
+                if flags:
+                    regrows += 1
+                    if regrows > max_regrow:
+                        raise RuntimeError(
+                            f"capacity overflow persists after {max_regrow} "
+                            "regrows; the configuration density is outside "
+                            f"what the {self.config.engine} engine's layout "
+                            "can absorb"
+                        )
+                    with trace.span("run.rewind"):
+                        self._rewind(snapshot, flags)
+                    continue
             self.state = state
             self.step_timing.append((chunk, elapsed))
             hist = self.metrics["m_lanczos_hist"]
@@ -332,6 +334,25 @@ class Simulation:
             if callback is not None:
                 callback(self)
         return self
+
+    def _rewind(self, snapshot: State, flags: int):
+        """Back to ``snapshot`` with the capacities ``flags`` names grown:
+        OVF_NBR the neighbor list, OVF_NF / OVF_BAND / OVF_FF the cell caps
+        and the band, OVF_LANCZOS m_max; OVF_CLASS drops the occupancy
+        classes."""
+        for name, bit in _OVF_FLAGS:
+            if flags & bit:
+                trace.count(f"overflow.{name}")
+        self.config = grow_config(self.config, flags=flags)
+        if (flags & OVF_CLASS and self.config.band_spec is not None
+                and self._class_regrows < 2):
+            # the density drifted past the classes sized at
+            # set_integrator: size them from the positions the
+            # chunk restarts from (after two, keep one class)
+            self._class_regrows += 1
+            self._remeasure_classes(snapshot)
+        self.state = snapshot
+        self.metrics["overflow_retries"] += 1
 
     def metrics_summary(self) -> str:
         """One-line run statistics: steps, wall time, retries, m histogram."""
@@ -356,7 +377,9 @@ class Simulation:
         """Deterministic U = M F (N, 3) at the current configuration."""
         u, overflow = mobility(self.config, self.state.pos, forces,
                                self.state.tilt_xy)
-        flags = int(overflow)
+        trace.count("read.mobility_overflow")
+        with trace.span("sync.mobility_overflow"):
+            flags = int(overflow)
         if flags:
             cfg = self.config
             specs = ((OVF_NF, "band_spec" if cfg.engine == "banded"

@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import kernels
+from . import kernels, trace
 from .box import Box, make_fraction
 
 
@@ -143,13 +143,11 @@ def fill_cells(sorted_cid, order, coords, n_cells, cap, values=None) -> Fill:
         cap, p(px), p(py), p(pz), p(mask), p(pid), p(vout), p(rank_of),
         p(starts), p(counts), p(overflow), kernels.stream_of(order),
     )
-    fill_cells.launches += 1
+    trace.count("launch.fill_cells")
     kernels.check("fill_cells", rc)
     return Fill(px, py, pz, mask, pid, rank_of, overflow, starts, counts,
                 vout)
 
-
-fill_cells.launches = 0
 
 
 def _finish_bins(sort, c_total, cap, values=None):

@@ -47,6 +47,7 @@ from .cellbins import (bin_columns, bin_particles, vec_from_cells,
                        vec_to_cells)
 from .neighbors import NeighborSpec, build_neighbor_list, grow_spec, make_spec
 from .params import PSEParams, ewald_table_on, gridk_arrays
+from . import trace
 from .ops import banded_nearfield as bdn
 from .ops import blocked_farfield as bff
 from .ops import blocked_nearfield as bnf
@@ -409,13 +410,14 @@ def _bin_both(config: StepConfig, pos, box: Box, binner, forces):
     ``forces`` (N, 3), when given, binned by both fills (zero in pad
     slots): (nf_bins, ff_bins, nf_f, ff_f)."""
     nf_spec, ff_spec = _nf_bin_spec(config), _ff_bin_spec(config)
-    if forces is None:
-        nf_bins = binner(pos, box, nf_spec)
-        ff_bins = bin_particles(pos, box, ff_spec)
-        return nf_bins, ff_bins, None, None
-    nf_bins, nf_f = binner(pos, box, nf_spec, values=forces)
-    ff_bins, ff_f = bin_particles(pos, box, ff_spec, values=forces)
-    return nf_bins, ff_bins, nf_f, ff_f
+    with trace.span("prepare.bin"):
+        if forces is None:
+            nf_bins = binner(pos, box, nf_spec)
+            ff_bins = bin_particles(pos, box, ff_spec)
+            return nf_bins, ff_bins, None, None
+        nf_bins, nf_f = binner(pos, box, nf_spec, values=forces)
+        ff_bins, ff_f = bin_particles(pos, box, ff_spec, values=forces)
+        return nf_bins, ff_bins, nf_f, ff_f
 
 
 def _ff_shared(config: StepConfig, ff_bins, box: Box):
@@ -423,11 +425,12 @@ def _ff_shared(config: StepConfig, ff_bins, box: Box):
     factors, or the stored weights (None when the spec builds them per
     use)."""
     p = config.params
-    if config.colff_spec is not None:
-        return cff.build_col_factors(ff_bins, box, config.colff_spec, p)
-    if config.ff_spec.store_weights:
-        return bff.build_weights(ff_bins, box, config.ff_spec, p)
-    return None
+    with trace.span("prepare.ff_factors"):
+        if config.colff_spec is not None:
+            return cff.build_col_factors(ff_bins, box, config.colff_spec, p)
+        if config.ff_spec.store_weights:
+            return bff.build_weights(ff_bins, box, config.ff_spec, p)
+        return None
 
 
 class _Engine:
@@ -506,8 +509,9 @@ class BandedEngine(_CellEngine):
         # plain matvec (CPU) gathers all 9 offsets
         offs = (bs.offsets if pos.device.type == "cpu"
                 else bs.offsets[:bdn.N_HALF])
-        j0, n_valid, band_overflow, zsh = bdn.compute_windows(
-            nf_bins, bs, box, cfg.params.ewald_cut, offsets=offs)
+        with trace.span("prepare.windows"):
+            j0, n_valid, band_overflow, zsh = bdn.compute_windows(
+                nf_bins, bs, box, cfg.params.ewald_cut, offsets=offs)
         factors = _ff_shared(cfg, ff_bins, box)
         overflow = (_ovf(nf_bins.overflow, OVF_NF)
                     | _ovf(ff_bins.overflow, OVF_FF)
@@ -516,7 +520,8 @@ class BandedEngine(_CellEngine):
         if bs.classes is not None and pos.device.type != "cpu":
             # the kernels pack A by occupancy class; the plain matvec (CPU)
             # ignores the classes, as the JAX package's off-TPU path does
-            perm, inv, class_overflow = bdn.class_assignment(bs, n_valid)
+            with trace.span("prepare.classes"):
+                perm, inv, class_overflow = bdn.class_assignment(bs, n_valid)
             cls = (perm, inv)
             overflow = overflow | _ovf(class_overflow, OVF_CLASS)
         return BandedCtx(nf_bins, ff_bins, j0, n_valid, zsh, factors,
@@ -557,8 +562,9 @@ class BlockedEngine(_CellEngine):
         cfg, p = self.config, self.config.params
         nf_bins, ff_bins, nf_f, ff_f = _bin_both(cfg, pos, box, bin_particles,
                                                  forces)
-        blocks = bnf.build_pair_blocks(nf_bins, box, cfg.nf_spec, cfg.cheb,
-                                       p.ewald_cut, p.ewald_dr)
+        with trace.span("prepare.pair_blocks"):
+            blocks = bnf.build_pair_blocks(nf_bins, box, cfg.nf_spec,
+                                           cfg.cheb, p.ewald_cut, p.ewald_dr)
         factors = _ff_shared(cfg, ff_bins, box)
         overflow = (_ovf(nf_bins.overflow, OVF_NF)
                     | _ovf(ff_bins.overflow, OVF_FF))
@@ -580,11 +586,14 @@ class GatherEngine(_Engine):
         returns (ctx, the overflow mask).  ``forces`` (N, 3) are kept as
         they are (ctx.ff_f) and transposed (ctx.nf_f)."""
         cfg, p = self.config, self.config.params
-        nlist = build_neighbor_list(pos, box, cfg.nbr_spec)
-        coeffs = nearfield.precompute_pair_coeffs(
-            pos, nlist.idx, box, ewald_table_on(p, pos.device), p.ewald_cut,
-            p.ewald_dr, p.ewald_n)
-        taps = farfield.compute_taps(pos, box, p)
+        with trace.span("prepare.bin"):
+            nlist = build_neighbor_list(pos, box, cfg.nbr_spec)
+        with trace.span("prepare.pair_coeffs"):
+            coeffs = nearfield.precompute_pair_coeffs(
+                pos, nlist.idx, box, ewald_table_on(p, pos.device),
+                p.ewald_cut, p.ewald_dr, p.ewald_n)
+        with trace.span("prepare.ff_factors"):
+            taps = farfield.compute_taps(pos, box, p)
         nf_f = None if forces is None else forces.t()
         ctx = GatherCtx(coeffs, taps, nf_f, forces)
         return ctx, _ovf(nlist.overflow, OVF_NBR)
@@ -631,16 +640,22 @@ def _far_field(config: StepConfig, eng, ctx, box: Box, device, noise_args):
     kvec, W = gridk_arrays(p, box.tilt_xy, device, half=True)
     ghat = None
     if ctx.ff_f is not None:
-        ghat = apply_green(torch.fft.rfftn(eng.spread(ctx, box),
-                                           dim=(1, 2, 3)), kvec, W)
+        with trace.span("far_field.spread"):
+            grid_f = eng.spread(ctx, box)
+        with trace.span("far_field.fft"):
+            ghat = apply_green(torch.fft.rfftn(grid_f, dim=(1, 2, 3)),
+                               kvec, W)
     if noise_args is not None:
         T, dt, generator, uniforms = noise_args
-        nh = noise.wave_space_noise_hat_half(p, kvec, W, T, dt, generator,
-                                             uniforms)
-        ghat = nh if ghat is None else ghat + nh
-    grid_v = torch.fft.irfftn(ghat, s=(p.Nx, p.Ny, p.Nz),
-                              dim=(1, 2, 3)).to(torch.float32)
-    return eng.contract(ctx, box, grid_v)
+        with trace.span("far_field.fft"):
+            nh = noise.wave_space_noise_hat_half(p, kvec, W, T, dt,
+                                                 generator, uniforms)
+            ghat = nh if ghat is None else ghat + nh
+    with trace.span("far_field.ifft"):
+        grid_v = torch.fft.irfftn(ghat, s=(p.Nx, p.Ny, p.Nz),
+                                  dim=(1, 2, 3)).to(torch.float32)
+    with trace.span("far_field.contract"):
+        return eng.contract(ctx, box, grid_v)
 
 
 def _velocity_scale(T, dt) -> float:
@@ -673,11 +688,27 @@ def step(config: StepConfig, state: State, forces, T, dt, shear_rate,
                      shear_rate, new_tilt, uniforms)
 
 
+def _matvec(eng, ctx):
+    """M_real in the engine's slots on ``ctx``, each call a
+    ``near_field.matvec`` span."""
+    def matvec_t(vt):
+        with trace.span("near_field.matvec"):
+            return eng.mreal_t(ctx, vt)
+    return matvec_t
+
+
 def step_impl(config: StepConfig, eng, state: State, forces, T, dt,
               shear_rate, new_tilt=None, uniforms=None):
     """``step`` with the engine ``eng`` (``engine_of(config)``, or a halo
     or sharded engine from ``parallel/``); the state lies on its home
     device."""
+    with trace.span("step"):
+        return _step_body(config, eng, state, forces, T, dt, shear_rate,
+                          new_tilt, uniforms)
+
+
+def _step_body(config: StepConfig, eng, state: State, forces, T, dt,
+               shear_rate, new_tilt, uniforms):
     p = config.params
     pos = state.pos
     box = _box_of(config, state.tilt_xy)
@@ -690,9 +721,11 @@ def step_impl(config: StepConfig, eng, state: State, forces, T, dt,
         f = (torch.zeros_like(pos) if forces is None
              else _as_f32(forces, pos.device))
 
-    ctx, overflow = eng.prepare(pos, box, f)
-    u = _far_field(config, eng, ctx, box, pos.device,
-                   (T, dt, gen, u_wave) if config.thermal else None)
+    with trace.span("prepare"):
+        ctx, overflow = eng.prepare(pos, box, f)
+    with trace.span("far_field"):
+        u = _far_field(config, eng, ctx, box, pos.device,
+                       (T, dt, gen, u_wave) if config.thermal else None)
 
     m_used = state.m_lanczos
     if config.thermal:
@@ -701,34 +734,43 @@ def step_impl(config: StepConfig, eng, state: State, forces, T, dt,
         if config.has_forces and eng.two_rhs:
             # M F rides the build as a second right-hand side: one pass
             # over A covers the build, M F and the first Lanczos matvec
-            ctx, u0 = eng.build_mv(ctx, torch.cat([ctx.nf_f, psi / vnorm]))
+            with trace.span("near_field.build_mv"):
+                ctx, u0 = eng.build_mv(ctx, torch.cat([ctx.nf_f,
+                                                       psi / vnorm]))
             u = u + eng.psi_result_to_particles(ctx, u0[0:3])
             w0 = u0[3:6]
         else:
-            ctx, w0 = eng.build_mv(ctx, psi / vnorm)
+            with trace.span("near_field.build_mv"):
+                ctx, w0 = eng.build_mv(ctx, psi / vnorm)
             if config.has_forces:
                 # blocked and gather: M F is a matvec of its own on the
                 # forces in the engine's slots
-                u = u + eng.psi_result_to_particles(
-                    ctx, eng.mreal_t(ctx, ctx.nf_f))
+                with trace.span("near_field.matvec"):
+                    mf = eng.mreal_t(ctx, ctx.nf_f)
+                u = u + eng.psi_result_to_particles(ctx, mf)
         probe = int(state.step % M_SHRINK_PERIOD == 0)
-        u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
-            lambda vt: eng.mreal_t(ctx, vt), psi, p.error,
-            max(state.m_lanczos - probe, 2), config.m_max, w0=w0,
-        )
+        with trace.span("lanczos"):
+            u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
+                _matvec(eng, ctx), psi, p.error,
+                max(state.m_lanczos - probe, 2), config.m_max, w0=w0,
+            )
         if hit_cap:
             overflow = overflow | OVF_LANCZOS
         u = u + _velocity_scale(T, dt) * eng.psi_result_to_particles(
             ctx, u_sqrt)
     else:
-        ctx, uF = eng.build_mv(ctx, ctx.nf_f)
+        with trace.span("near_field.build_mv"):
+            ctx, uF = eng.build_mv(ctx, ctx.nf_f)
         u = u + eng.psi_result_to_particles(ctx, uF)
 
-    vel = u.clone()
-    vel[:, 0] += float(np.float32(shear_rate)) * pos[:, 1]
-    new_pos = pos + vel * float(np.float32(dt))
-    tilt = state.tilt_xy if new_tilt is None else float(np.float32(new_tilt))
-    new_pos, new_images = wrap(_box_of(config, tilt), new_pos, state.images)
+    with trace.span("update"):
+        vel = u.clone()
+        vel[:, 0] += float(np.float32(shear_rate)) * pos[:, 1]
+        new_pos = pos + vel * float(np.float32(dt))
+        tilt = (state.tilt_xy if new_tilt is None
+                else float(np.float32(new_tilt)))
+        new_pos, new_images = wrap(_box_of(config, tilt), new_pos,
+                                   state.images)
 
     new_state = State(
         pos=new_pos, images=new_images, step=state.step + 1, tilt_xy=tilt,
@@ -745,22 +787,29 @@ def brownian_displacement(config: StepConfig, pos, tilt_xy, step: int,
     Returns (u (N, 3), m_used, overflow mask)."""
     p = config.params
     eng = engine_of(config)
-    pos = _as_f32(pos, eng.device)
-    box = _box_of(config, tilt_xy)
-    gen = step_generator(config, step)
-    ctx, overflow = eng.prepare(pos, box)
-    u_wave = _far_field(config, eng, ctx, box, pos.device, (T, dt, gen, None))
-    psi = eng.slots_of_psi(ctx, gen, None)
-    vnorm = torch.sqrt(torch.sum(psi * psi))
-    ctx, w0 = eng.build_mv(ctx, psi / vnorm)
-    u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
-        lambda vt: eng.mreal_t(ctx, vt), psi, p.error, m_start,
-        config.m_max, w0=w0,
-    )
-    u_real = _velocity_scale(T, dt) * eng.psi_result_to_particles(ctx, u_sqrt)
-    if hit_cap:
-        overflow = overflow | OVF_LANCZOS
-    return u_wave + u_real, m_used, overflow
+    with trace.span("step"):
+        pos = _as_f32(pos, eng.device)
+        box = _box_of(config, tilt_xy)
+        gen = step_generator(config, step)
+        with trace.span("prepare"):
+            ctx, overflow = eng.prepare(pos, box)
+        with trace.span("far_field"):
+            u_wave = _far_field(config, eng, ctx, box, pos.device,
+                                (T, dt, gen, None))
+        psi = eng.slots_of_psi(ctx, gen, None)
+        vnorm = torch.sqrt(torch.sum(psi * psi))
+        with trace.span("near_field.build_mv"):
+            ctx, w0 = eng.build_mv(ctx, psi / vnorm)
+        with trace.span("lanczos"):
+            u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
+                _matvec(eng, ctx), psi, p.error, m_start, config.m_max,
+                w0=w0,
+            )
+        u_real = _velocity_scale(T, dt) * eng.psi_result_to_particles(
+            ctx, u_sqrt)
+        if hit_cap:
+            overflow = overflow | OVF_LANCZOS
+        return u_wave + u_real, m_used, overflow
 
 
 def mobility(config: StepConfig, pos, forces, tilt_xy=0.0):
@@ -775,11 +824,15 @@ def mobility(config: StepConfig, pos, forces, tilt_xy=0.0):
 def mobility_impl(config: StepConfig, eng, pos, forces, tilt_xy=0.0):
     """``mobility`` with the engine ``eng``, on its home device
     ``eng.device``."""
-    pos = _as_f32(pos, eng.device)
-    forces = _as_f32(forces, eng.device)
-    box = _box_of(config, tilt_xy)
-    ctx, overflow = eng.prepare(pos, box, forces)
-    ctx, u0 = eng.build_mv(ctx, ctx.nf_f)
-    u_real = eng.psi_result_to_particles(ctx, u0)
-    return u_real + _far_field(config, eng, ctx, box, pos.device,
-                               None), overflow
+    with trace.span("step"):
+        pos = _as_f32(pos, eng.device)
+        forces = _as_f32(forces, eng.device)
+        box = _box_of(config, tilt_xy)
+        with trace.span("prepare"):
+            ctx, overflow = eng.prepare(pos, box, forces)
+        with trace.span("near_field.build_mv"):
+            ctx, u0 = eng.build_mv(ctx, ctx.nf_f)
+        u_real = eng.psi_result_to_particles(ctx, u0)
+        with trace.span("far_field"):
+            u_wave = _far_field(config, eng, ctx, box, pos.device, None)
+        return u_real + u_wave, overflow

@@ -89,9 +89,12 @@ def build() -> Path:
     """Compile every source in parallel, link, and return the library path
     (an existing library for the same digest is reused).  Records the
     seconds taken and the ptxas resource report in ``BUILD_INFO``."""
+    from . import trace
+
     out = build_dir()
     lib = out / "libpse_kernels.so"
     if lib.exists():
+        trace.count("kernels.reuse")
         BUILD_INFO.setdefault("seconds", 0.0)
         BUILD_INFO.setdefault("log", "(reused)")
         return lib
@@ -126,6 +129,7 @@ def build() -> Path:
         os.remove(o)
     BUILD_INFO["seconds"] = time.perf_counter() - t0
     BUILD_INFO["log"] = "\n".join(logs)
+    trace.count("kernels.build")
     return lib
 
 

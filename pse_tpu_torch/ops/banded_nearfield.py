@@ -36,7 +36,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from ..box import Box, min_image_components
 from ..cellbins import BinSpec, CellBins, roll_cells
 from .chebyshev import ChebPair, device_coeffs, eval_pair_functions
@@ -679,12 +679,10 @@ def build_mv_banded(bins: CellBins, tilt_xy, spec: BandSpec, cheb: ChebPair,
     blocks, uo, rc = _launch_banded(MODE_BUILD_MV, bins, tilt_xy, spec, cheb,
                                     L, ewald_cut, ewald_dr, j0, n_valid, zsh,
                                     f_cells, pack)
-    build_mv_banded.launches += 1
+    trace.count("launch.build_mv_banded")
     kernels.check("build_mv_banded", rc)
     return blocks, _finish_u(_fold_planes(uo), spec, f_cells, self_mobility)
 
-
-build_mv_banded.launches = 0
 
 
 def matvec_banded(blocks, bins: CellBins, tilt_xy, spec: BandSpec,
@@ -702,12 +700,10 @@ def matvec_banded(blocks, bins: CellBins, tilt_xy, spec: BandSpec,
                 n_valid, f, self_mobility))
     uo, rc = _launch_matvec(blocks, bins, tilt_xy, spec, L, j0, n_valid, zsh,
                             f_cells, pack)
-    matvec_banded.launches += 1
+    trace.count("launch.matvec_banded")
     kernels.check("matvec_banded", rc)
     return _finish_u(_fold_planes(uo), spec, f_cells, self_mobility)
 
-
-matvec_banded.launches = 0
 
 
 def window_geometry(bins: CellBins, tilt_xy, spec: BandSpec, L, j0, n_valid,
@@ -803,9 +799,7 @@ def build_banded_blocks(bins: CellBins, tilt_xy, spec: BandSpec,
                                              n_valid, zsh)
     blocks, _, rc = _launch_banded(MODE_BUILD, bins, tilt_xy, spec, cheb, L,
                                    ewald_cut, ewald_dr, j0, n_valid, zsh)
-    build_banded_blocks.launches += 1
+    trace.count("launch.build_banded_blocks")
     kernels.check("build_banded_blocks", rc)
     return blocks
 
-
-build_banded_blocks.launches = 0

@@ -25,7 +25,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import kernels
+from .. import kernels, trace
 from ..box import Box
 from ..cellbins import BinSpec, CellBins
 from ..params import PSEParams
@@ -209,12 +209,10 @@ def contract_col_kernel(grid_real: torch.Tensor, spec: ColFfSpec,
         p(grid), p(wxy), p(wz), int(dtype == torch.bfloat16), ncx, ncy, sx,
         sy, Nx, Ny, Nz, cap, scale, p(u), kernels.stream_of(grid),
     )
-    contract_col_kernel.launches += 1
+    trace.count("launch.contract_col_kernel")
     kernels.check("contract_col_kernel", rc)
     return u
 
-
-contract_col_kernel.launches = 0
 
 
 def _windows_to_grid(out: torch.Tensor, spec: ColFfSpec, params: PSEParams):
@@ -281,12 +279,10 @@ def spread_moments_kernel(f_cells: torch.Tensor, spec: ColFfSpec,
         p(f), p(wxy), p(wz), int(dtype == torch.bfloat16), C, nn, Nz, cap,
         float(np.float32(params.spread_prefac)), p(out), kernels.stream_of(f),
     )
-    spread_moments_kernel.launches += 1
+    trace.count("launch.spread_moments_kernel")
     kernels.check("spread_moments_kernel", rc)
     return out
 
-
-spread_moments_kernel.launches = 0
 
 
 def spread_col_kernel(f_cells: torch.Tensor, spec: ColFfSpec,

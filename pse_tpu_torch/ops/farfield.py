@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .. import trace
 from ..box import Box, make_fraction
 from ..params import PSEParams
 
@@ -101,7 +102,9 @@ def _node_taps(flat: torch.Tensor, n_grid: int) -> torch.Tensor:
     nodes, perm = torch.sort(flat, stable=True)
     starts = torch.searchsorted(nodes, torch.arange(n_grid, device=dev))
     counts = torch.diff(starts, append=starts.new_full((1,), n_taps))
-    width = max(1, int(counts.max()))
+    trace.count("read.tap_width")
+    with trace.span("sync.tap_width"):
+        width = max(1, int(counts.max()))
     rank = torch.arange(n_taps, device=dev) - starts[nodes]
     table = torch.full((n_grid, width), n_taps, dtype=torch.int64, device=dev)
     table[nodes, rank] = perm

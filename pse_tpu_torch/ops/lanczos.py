@@ -27,13 +27,17 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import trace
+
 
 def _sqrt_tridiag_e1(alpha, beta, m_max):
     """f = T^{1/2} e_1 of the zero-padded symmetric tridiagonal (float64)."""
-    T = (np.diag(alpha) + np.diag(beta[1:m_max], 1)
-         + np.diag(beta[1:m_max], -1))
-    lam, Q = np.linalg.eigh(T)
-    return Q @ (np.sqrt(np.maximum(lam, 0.0)) * Q[0, :])
+    trace.count("lanczos.eigh")
+    with trace.span("lanczos.eigh"):
+        T = (np.diag(alpha) + np.diag(beta[1:m_max], 1)
+             + np.diag(beta[1:m_max], -1))
+        lam, Q = np.linalg.eigh(T)
+        return Q @ (np.sqrt(np.maximum(lam, 0.0)) * Q[0, :])
 
 
 def sqrt_mreal(
@@ -74,7 +78,11 @@ def sqrt_mreal(
         a = torch.sum(vj * w)
         w = w - a * vj
         nb = torch.sqrt(torch.sum(w * w))
-        a_h, nb_h = torch.stack([a, nb]).tolist()     # the one host read
+        a_nb = torch.stack([a, nb])
+        trace.count("lanczos.iterations")
+        trace.count("read.lanczos")
+        with trace.span("sync.lanczos"):
+            a_h, nb_h = a_nb.tolist()                  # the one host read
         alpha[j] = a_h
         breakdown = nb_h < eps_breakdown
         vnext = w / (1.0 if breakdown else nb)

@@ -38,7 +38,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import integrator
+from .. import integrator, trace
 from ..cellbins import CellBins, bin_columns
 from ..integrator import OVF_BAND, OVF_CLASS, StepConfig, _ovf
 from ..ops import banded_nearfield as bdn
@@ -137,21 +137,25 @@ class HaloEngine(integrator.BandedEngine):
         slabs, band, cls = [], [], []
         for d, dev in enumerate(self.mesh.devices):
             with on_device(dev):
-                bins = CellBins(
-                    self.exchange_x(nf_bins.px, d, seam_shift=True),
-                    self.exchange_x(nf_bins.py, d),
-                    self.exchange_x(nf_bins.pz, d),
-                    self.exchange_x(nf_bins.mask, d), None, None, None, None)
+                with trace.span("halo.exchange"):
+                    bins = CellBins(
+                        self.exchange_x(nf_bins.px, d, seam_shift=True),
+                        self.exchange_x(nf_bins.py, d),
+                        self.exchange_x(nf_bins.pz, d),
+                        self.exchange_x(nf_bins.mask, d), None, None, None,
+                        None)
                 # the kernels read the half stencil's windows; the plain
                 # matvec (CPU) all 9
                 offs = (self.spec.offsets if dev.type == "cpu"
                         else self.spec.offsets[:bdn.N_HALF])
-                j0, nv, ovf, zsh = bdn.compute_windows(
-                    bins, self.spec, box, cfg.params.ewald_cut,
-                    col_mask=self.interior[d], offsets=offs)
+                with trace.span("prepare.windows"):
+                    j0, nv, ovf, zsh = bdn.compute_windows(
+                        bins, self.spec, box, cfg.params.ewald_cut,
+                        col_mask=self.interior[d], offsets=offs)
                 pack = None
                 if self.spec.classes is not None and dev.type != "cpu":
-                    perm, inv, covf = bdn.class_assignment(self.spec, nv)
+                    with trace.span("prepare.classes"):
+                        perm, inv, covf = bdn.class_assignment(self.spec, nv)
                     pack = (perm, inv)
                     cls.append(covf.to(self.device))
                 band.append(ovf.to(self.device))

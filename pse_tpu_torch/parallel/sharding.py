@@ -35,7 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .. import integrator
+from .. import integrator, trace
 from ..cellbins import CellBins, bin_particles
 from ..integrator import OVF_FF, OVF_NF, State, StepConfig, _ovf
 from ..ops import blocked_nearfield as bnf
@@ -159,8 +159,10 @@ class ShardedBlockedEngine(integrator.BlockedEngine):
             with on_device(dev):
                 bins = CellBins(*(t.to(dev) for t in nf_bins[:4]), None,
                                 None, None, None)
-                parts.append((dev, spec, bins, bnf.build_pair_blocks(
-                    bins, box, spec, cfg.cheb, p.ewald_cut, p.ewald_dr)))
+                with trace.span("prepare.pair_blocks"):
+                    blocks = bnf.build_pair_blocks(
+                        bins, box, spec, cfg.cheb, p.ewald_cut, p.ewald_dr)
+                parts.append((dev, spec, bins, blocks))
         factors = integrator._ff_shared(cfg, ff_bins, box)
         overflow = (_ovf(nf_bins.overflow, OVF_NF)
                     | _ovf(ff_bins.overflow, OVF_FF))

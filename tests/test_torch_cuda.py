@@ -22,7 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from pse_tpu_torch import integrator as pi              # noqa: E402
-from pse_tpu_torch import make_box, make_params         # noqa: E402
+from pse_tpu_torch import make_box, make_params, trace  # noqa: E402
 from pse_tpu_torch.cellbins import (                    # noqa: E402
     BinSpec, Fill, bin_columns, bin_particles, fill_cells,
     fill_cells_reference, fill_operands, vec_to_cells)
@@ -30,6 +30,17 @@ from pse_tpu_torch.ops import banded_nearfield as bdn   # noqa: E402
 from pse_tpu_torch.ops import column_farfield as cff    # noqa: E402
 
 pytestmark = pytest.mark.cuda
+
+# the step's kernel wrappers, by their launch counters
+STEP_LAUNCHES = ("launch.fill_cells", "launch.contract_col_kernel",
+                 "launch.spread_moments_kernel", "launch.build_mv_banded",
+                 "launch.matvec_banded")
+
+
+def _launched(before):
+    """Launches of each of STEP_LAUNCHES since the counters ``before``."""
+    now = trace.counters()
+    return [now.get(k, 0) - before.get(k, 0) for k in STEP_LAUNCHES]
 
 
 @pytest.fixture
@@ -580,9 +591,6 @@ def test_blocked_step_and_mobility_on_card_match_cpu(cuda, thermal,
     """The blocked engine's step (and U = M F), float32 blocks and factors,
     card vs CPU, through the fill, contract and spread kernels and no
     banded kernel."""
-    from pse_tpu_torch.ops.column_farfield import (contract_col_kernel,
-                                                   spread_moments_kernel)
-
     n, L = 1080, 24.0
     params = make_params(xi=0.5, error=1e-3, L=L)
     kw = dict(thermal=thermal, has_forces=has_forces, block_dtype="float32")
@@ -598,10 +606,7 @@ def test_blocked_step_and_mobility_on_card_match_cpu(cuda, thermal,
                          ).astype(np.float32),
              rng.uniform(-1.2, 1.2, (6, p.Nx, p.Ny, p.Nz // 2 + 1)
                          ).astype(np.float32)) if thermal else None
-    wrappers = (fill_cells, contract_col_kernel, spread_moments_kernel,
-                bdn.build_mv_banded, bdn.matvec_banded)
-    for w in wrappers:
-        w.launches = 0
+    before = trace.counters()
     T = 1.0 if thermal else 0.0
     _, ic = pi.step(cpu, pi.make_state(pos, 2, 0.3, "cpu"),
                     forces if has_forces else None, T, 1e-3, 0.4,
@@ -611,7 +616,7 @@ def test_blocked_step_and_mobility_on_card_match_cpu(cuda, thermal,
                     uniforms=draws)
     assert ig["m_lanczos"] == ic["m_lanczos"]
     assert _rel_max(ig["velocities"].cpu(), ic["velocities"]) < 1e-4
-    launches = [w.launches for w in wrappers]
+    launches = _launched(before)
     assert launches[0] == 2 and launches[1] == 1
     assert launches[2] == int(has_forces) and launches[3:] == [0, 0]
     uc, _ = pi.mobility(cpu, pos, forces, 0.3)
@@ -632,8 +637,6 @@ def test_gather_step_and_mobility_on_card_match_cpu(cuda, box, n, subdiv,
     per step, the all-pairs list none, and no other kernel launches."""
     from pse_tpu_torch import neighbors as nb
     from pse_tpu_torch.ops import farfield as ff
-    from pse_tpu_torch.ops.column_farfield import (contract_col_kernel,
-                                                   spread_moments_kernel)
 
     params = make_params(xi=0.5, error=1e-3, L=box)
     kw = dict(engine="gather", thermal=thermal, has_forces=has_forces,
@@ -649,10 +652,7 @@ def test_gather_step_and_mobility_on_card_match_cpu(cuda, box, n, subdiv,
              rng.uniform(-1.2, 1.2, (6, p.Nx, p.Ny, p.Nz // 2 + 1)
                          ).astype(np.float32)) if thermal else None
     T = 1.0 if thermal else 0.0
-    wrappers = (fill_cells, contract_col_kernel, spread_moments_kernel,
-                bdn.build_mv_banded, bdn.matvec_banded)
-    for w in wrappers:
-        w.launches = 0
+    before = trace.counters()
     _, ic = pi.step(cpu, pi.make_state(pos, 2, 0.3, "cpu"),
                     forces if has_forces else None, T, 1e-3, 0.4,
                     uniforms=draws)
@@ -663,7 +663,7 @@ def test_gather_step_and_mobility_on_card_match_cpu(cuda, box, n, subdiv,
     assert _rel_max(runs[0]["velocities"].cpu(), ic["velocities"]) < 1e-4
     assert torch.equal(runs[0]["velocities"], runs[1]["velocities"])
     cells = 0 if gpu.nbr_spec.all_pairs else 1
-    assert [w.launches for w in wrappers] == [2 * cells, 0, 0, 0, 0]
+    assert _launched(before) == [2 * cells, 0, 0, 0, 0]
     box_t = make_box(box, 0.3)
     lg = nb.build_neighbor_list(torch.as_tensor(pos, device="cuda"), box_t,
                                 gpu.nbr_spec)
@@ -798,12 +798,10 @@ def test_halo_two_slabs_match_one_device_on_card(cuda, dtype, bound):
     st = pi.make_state(pos, 3, 0.3, "cuda")
     f = torch.as_tensor(forces, device=cuda)
     s1, i1 = pi.step(no_cls, st, f, 1.0, 1e-3, 0.5, None, uniforms=draws)
-    before = (bdn.build_mv_banded.launches, bdn.matvec_banded.launches)
+    before = trace.counters()
     s2, i2 = halo.make_halo_step(with_cls, mesh)(st, f, 1.0, 1e-3, 0.5,
                                                  uniforms=draws)
-    assert (bdn.build_mv_banded.launches - before[0],
-            bdn.matvec_banded.launches - before[1]) == (
-                2, 2 * (i2["m_lanczos"] - 1))
+    assert _launched(before)[3:] == [2, 2 * (i2["m_lanczos"] - 1)]
     assert i1["m_lanczos"] == i2["m_lanczos"] and int(s2.nbr_overflow) == 0
     assert _rel(s2.pos - st.pos, s1.pos - st.pos) < bound
 

@@ -32,6 +32,7 @@ from pse_tpu_torch import cellbins as pc     # noqa: E402
 from pse_tpu_torch import integrator as pi   # noqa: E402
 from pse_tpu_torch import params as pparams  # noqa: E402
 from pse_tpu_torch import shear as pshear    # noqa: E402
+from pse_tpu_torch import trace              # noqa: E402
 from pse_tpu_torch.ops import banded_nearfield as pb   # noqa: E402
 from pse_tpu_torch.ops import column_farfield as pf    # noqa: E402
 from pse_tpu_torch.ops import lanczos as pl  # noqa: E402
@@ -459,8 +460,7 @@ def test_kernel_wrappers_take_the_plain_path_on_cpu():
     jcfg, tcfg = _configs()
     pos = torch.as_tensor(_positions(9))
     box = P.make_box(L, 0.1)
-    before = (pc.fill_cells.launches, pb.build_mv_banded.launches,
-              pb.matvec_banded.launches, pf.contract_col_kernel.launches)
+    before = trace.counters()
     spec = tcfg.band_spec.bins
     ops = pc.fill_operands(pos, box, spec, True)
     vals = torch.as_tensor(np.random.default_rng(3).normal(
@@ -474,9 +474,11 @@ def test_kernel_wrappers_take_the_plain_path_on_cpu():
     assert int(ovf) == 0
     ctx, u = eng.build_mv(ctx, torch.ones((3,) + ctx.nf_bins.px.shape))
     assert ctx.blocks is None and torch.isfinite(u).all()
-    after = (pc.fill_cells.launches, pb.build_mv_banded.launches,
-             pb.matvec_banded.launches, pf.contract_col_kernel.launches)
-    assert after == before
+    launches = ("launch.fill_cells", "launch.build_mv_banded",
+                "launch.matvec_banded", "launch.contract_col_kernel")
+    after = trace.counters()
+    assert [after.get(k, 0) for k in launches] == [before.get(k, 0)
+                                                   for k in launches]
 
 
 @pytest.mark.parametrize("tilt", [0.0, -0.35])
