@@ -89,8 +89,9 @@ Phases (each failure makes the script exit non-zero without the result line):
             the default, blocked engine (asserted), a warm-up and 10 timed
             steps; ms/step, particle-steps/s, the m histogram, the retries,
             the pair-block bytes, the peak device memory and every kernel's
-            launches (the fill, the contract and, with forces, the spread
-            > 0; the banded kernels 0);
+            launches (the fill, build_pair_blocks, the contract and, with
+            forces, the spread > 0; the banded kernels 0; on the banded and
+            gather paths build_pair_blocks 0);
   [blocked-mobility]  Simulation.mobility_matvec at the blocked state;
   [gather], [gather-forces]  the same Simulation with engine="gather", a
             warm-up and 10 timed steps: ms/step, particle-steps/s, the m
@@ -162,9 +163,16 @@ Phases (each failure makes the script exit non-zero without the result line):
             matvec's bound counts the A rows of the non-empty tiles, the
             ones the kernel reads, and the bound of all of A is kept beside
             it; the fill at the blocked near field's shape (wrapper, kernel
-            alone, bound), build_pair_blocks and one matvec_cells (CUDA
-            events, with the bytes each must move and their kernel
-            launches per call by torch.profiler); the gather step's parts
+            alone, bound); [blocked-build]: build_pair_blocks
+            (csrc/blocked.cu) at the [blocked-forces] state (N=100k, cells
+            (9, 13, 13), cap 112, bf16): the blocks torch.equal and bit for
+            bit build_pair_blocks_reference's at tilts 0 and 0.3, a rerun
+            bitwise, one launch a call, the kernel alone (CUDA-graph
+            replay), its wrapper and its plain version (CUDA events) at tilt
+            0.3 beside its bound by bytes; then build_pair_blocks and one
+            matvec_cells (plain PyTorch) by CUDA events, with the bytes each
+            must move and their kernel launches per call by torch.profiler;
+            the gather step's parts
             (the neighbor build, the pair coefficients, one matvec, the
             taps, the tap spread and contract) by CUDA events beside the
             bytes each must move; the class-packed build_mv (two
@@ -930,13 +938,15 @@ def _sync_idle(sim, steps=3):
 
 def _step_wrappers(forces: bool, engine: str = "banded"):
     """The kernel wrappers a main-path step launches, by their launch
-    counters (on the blocked engine: the fills, the contract and, with
-    forces, the spread; on the gather engine: the fill of the neighbor
-    list's cell binning)."""
+    counters (on the blocked engine: the fills, the pair-block build, the
+    contract and, with forces, the spread; on the gather engine: the fill
+    of the neighbor list's cell binning)."""
     if engine == "gather":
         return {"fill_cells": "launch.fill_cells"}
     w = {"fill_cells": "launch.fill_cells",
          "contract_col": "launch.contract_col_kernel"}
+    if engine == "blocked":
+        w["build_pair_blocks"] = "launch.build_pair_blocks"
     if engine == "banded":
         w.update(build_mv_banded="launch.build_mv_banded",
                  matvec_banded="launch.matvec_banded")
@@ -947,6 +957,7 @@ def _step_wrappers(forces: bool, engine: str = "banded"):
 
 def _all_wrappers():
     return {**_step_wrappers(True),
+            **_step_wrappers(True, "blocked"),
             "build_banded_blocks": "launch.build_banded_blocks"}
 
 
@@ -1125,13 +1136,14 @@ def phase_main(ph, forces: bool, engine: str = "banded",
     cfg = sim.config
     peak = (f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
             " GB (torch.cuda.max_memory_allocated)")
+    unused = () if engine == "blocked" else ("build_pair_blocks",)
     if engine != "banded":
-        unused = ("build_mv_banded", "matvec_banded", "build_banded_blocks")
-        if engine == "gather":
-            unused += ("contract_col", "spread_col")
-        for k in unused:
-            if launches[k]:
-                ph.failed.append(f"{k} launched on the {label} path")
+        unused += ("build_mv_banded", "matvec_banded", "build_banded_blocks")
+    if engine == "gather":
+        unused += ("contract_col", "spread_col")
+    for k in unused:
+        if launches[k]:
+            ph.failed.append(f"{k} launched on the {label} path")
     if engine == "blocked":
         nf = cfg.nf_spec
         C, cap = nf.bins.n_cells_total, nf.bins.cap
@@ -1950,13 +1962,16 @@ def phase_packed_timing(ph, simc, results):
     torch.cuda.empty_cache()
 
 
-def phase_blocked_timing(simb, results):
-    """The fill at the blocked near field's shape (tilt 0.3), and
-    build_pair_blocks and one matvec_cells, by CUDA events, beside the
-    bytes each must move."""
+def phase_blocked_timing(ph, simb, results, launches_b):
+    """The fill at the blocked near field's shape (tilt 0.3); [blocked-build]:
+    build_pair_blocks at the [blocked-forces] state, bitwise its plain
+    version at tilts 0 and 0.3, its kernel alone, wrapper and plain version
+    timed at 0.3 beside its bound by bytes; one matvec_cells by CUDA events;
+    the bytes each must move and the launches per call."""
     import torch
 
     from pse_tpu_torch import cellbins as cb
+    from pse_tpu_torch import trace
     from pse_tpu_torch.ab import device_profile
     from pse_tpu_torch.box import make_box
     from pse_tpu_torch.ops import blocked_nearfield as bnf
@@ -1982,17 +1997,52 @@ def phase_blocked_timing(simb, results):
           f"{fl['blocked_kernel_ms']:.4f} ms (CUDA-graph replay), bound "
           f"{fl['blocked_bound_ms']:.4f} ms by bytes, plain "
           f"{fl['blocked_plain_ms']:.4f} ms")
-    bins = cb.bin_particles(pos, box, nf.bins)
     item = torch.empty((), dtype=getattr(torch, nf.block_dtype)).element_size()
     block_bytes = len(nf.offsets) * 6 * C * cap * cap * item
     slots = 4 * C * cap * 4
+    print(f"[blocked-build] build_pair_blocks at the [blocked-forces] state: "
+          f"cells {nf.bins.n_cells} cap {cap} {nf.block_dtype}, "
+          f"{len(nf.offsets)} offsets")
+    if nf.block_dtype != "bfloat16":
+        ph.failed.append(f"blocked-build: {nf.block_dtype} blocks")
+    for tilt in (0.0, 0.3):            # timed below at the last, 0.3
+        bins = cb.bin_particles(pos, make_box(p.L, tilt), nf.bins)
+        args = (bins, make_box(p.L, tilt), nf, config.cheb, p.ewald_cut,
+                p.ewald_dr)
+        n0 = trace.counters().get("launch.build_pair_blocks", 0)
+        got = bnf.build_pair_blocks(*args)
+        if trace.counters().get("launch.build_pair_blocks", 0) != n0 + 1:
+            ph.failed.append(f"blocked-build tilt={tilt}: not one launch")
+        want = bnf.build_pair_blocks_reference(*args)
+        bad = int((got.view(torch.int16) != want.view(torch.int16)).sum())
+        equal = torch.equal(got, want)
+        print(f"  tilt={tilt}: blocks torch.equal {equal}, elements whose "
+              f"bits differ {bad} of {got.numel()}, nonzero "
+              f"{int(got.count_nonzero())}")
+        if not equal or bad:
+            ph.failed.append(f"blocked-build tilt={tilt}: blocks differ")
+        del want
+        rerun = bnf.build_pair_blocks(*args)
+        if not torch.equal(rerun.view(torch.int16), got.view(torch.int16)):
+            ph.failed.append(f"blocked-build tilt={tilt}: rerun differs")
+        del got, rerun
+        torch.cuda.empty_cache()
 
     def build():
-        return bnf.build_pair_blocks(bins, box, nf, config.cheb, p.ewald_cut,
-                                     p.ewald_dr)
+        return bnf.build_pair_blocks(*args)
+    alone = graph_ms(build, 5)
+    torch.cuda.empty_cache()
+    b_ms = cuda_ms(build, 10)
+    plain = cuda_ms(lambda: bnf.build_pair_blocks_reference(*args), 2)
+    bound = 1e3 * (slots + block_bytes) / HBM_BYTES_PER_S
+    per_step = launches_b["build_pair_blocks"] / BLOCKED_TIMED
+    print(f"  kernel alone {alone:.4f} ms (CUDA-graph replay), wrapper "
+          f"{b_ms:.4f} ms (CUDA events), bound {bound:.4f} ms by bytes "
+          f"({(slots + block_bytes) / 1e9:.3f} GB at 3.35 TB/s: "
+          f"{100 * bound / alone:.1f} % of it alone), plain {plain:.2f} ms; "
+          f"{per_step:g} launches a step on [blocked-forces]")
     blocks = build()
     f = torch.randn((3, C, cap), device="cuda") * bins.mask
-    b_ms = cuda_ms(build, 3)
     m_ms = cuda_ms(lambda: bnf.matvec_cells(blocks, nf, bins, f,
                                             p.self_mobility), 5)
     for name, ms, nbytes, fn in (
@@ -2011,6 +2061,10 @@ def phase_blocked_timing(simb, results):
               f"{100 * bound / ms:.1f} % of it; {prof['launches']:.0f} "
               f"kernel launches and {prof['copies']:.0f} copies and "
               "memsets per call (torch.profiler)")
+    results["blocked"]["build_pair_blocks"].update(
+        alone_ms=alone, plain_ms=plain,
+        launches_blocked=launches_b["build_pair_blocks"],
+        launches_per_step=per_step)
     del blocks
     torch.cuda.empty_cache()
 
@@ -2619,7 +2673,7 @@ def main() -> int:
     phase_kernels(ph, simf, results, simb, simg)
     phase_timing(simf, results)
     phase_packed_timing(ph, simc, results)
-    phase_blocked_timing(simb, results)
+    phase_blocked_timing(ph, simb, results, launches_b)
     phase_gather_timing(simg, results)
 
     line = []
@@ -2651,7 +2705,8 @@ def main() -> int:
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
               f"launches {launches[name]}")
-    print(f"blocked near field (not kernels): {json.dumps(results['blocked'])}")
+    print("blocked near field (build_pair_blocks: csrc/blocked.cu; "
+          f"matvec_cells: plain PyTorch): {json.dumps(results['blocked'])}")
     print(f"gather engine (not kernels): {json.dumps(results['gather'])}")
     print(f"classes-run: {json.dumps(class_run)}")
     for name, n, ms, prof, a, peak in (

@@ -536,39 +536,14 @@ cudaError_t dispatch(int nrhs, const Band& b, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
-// The pair functions of chebyshev.eval_pair_functions at a valid d^2 as the
-// build stores them, (imrr, bco / d^2): the two Clenshaw recurrences on the
-// coefficient rows of the piece, rounded step by step as they are there (no
-// fused multiply-add), and the two true divisions, so that the float32
-// build is the plain build bit for bit.  On the H100 those roundings cost
-// about 0.01 ms of the build (pse_tpu_torch/ab.py --contract times them
-// against contracted FMAs; 0.044 ms when every pair evaluated them).
-// NC: the number of coefficients, or 0 to take n.
+// The build's coefficients at a valid d^2, (imrr, bco / d^2): the pair
+// functions (common.cuh) and a true division, as the plain build rounds them.
 template <int NC>
 __device__ __forceinline__ void pair_coefs(const float* cf, int n, float mid,
                                            float d2, float& s1, float& s2) {
-  if (NC > 0) n = NC;
-  const float dist = sqrtf(d2);
-  const bool in_lo = dist < mid;
-  const float* ab = cf + (in_lo ? 0 : 2);
-  const float t = (2.f * dist - ab[0]) / ab[1];
-  const float* c1 = cf + 4 + (in_lo ? 0 : 2 * n);
-  const float* c2 = c1 + n;
-  const float t2 = 2.f * t;
-  float a1 = 0.f, a2 = 0.f, b1 = 0.f, b2 = 0.f;
-#pragma unroll 8
-  for (int k = n - 1; k > 0; --k) {
-    const float na = __fsub_rn(__fadd_rn(c1[k], __fmul_rn(t2, a1)), a2);
-    const float nb = __fsub_rn(__fadd_rn(c2[k], __fmul_rn(t2, b1)), b2);
-    a2 = a1;
-    a1 = na;
-    b2 = b1;
-    b1 = nb;
-  }
-  const float uf1 = __fsub_rn(__fadd_rn(c1[0], __fmul_rn(t, a1)), a2);
-  const float uf2 = __fsub_rn(__fadd_rn(c2[0], __fmul_rn(t, b1)), b2);
-  s1 = uf1;
-  s2 = (uf2 - uf1) / d2;
+  float uf2;
+  pair_functions<NC>(cf, n, mid, d2, s1, uf2);
+  s2 = (uf2 - s1) / d2;
 }
 
 // A build tile group's scratch: its window's 4 rows (x, y, z, mask) of G

@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fill.cu", "banded.cu", "contract.cu", "spread.cu")
+SOURCES = ("fill.cu", "banded.cu", "blocked.cu", "contract.cu", "spread.cu")
 HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = (
     "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +44,9 @@ _SIGNATURES = {
     "pse_banded_matvec": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                           _I, _F, _F, _F, _F, _I, _P, _P,
                           _P, _I, _P, _P, _P],
+    "pse_blocked_build": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _I, _I,
+                          _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _I, _P,
+                          _P],
     "pse_contract_col": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P, _P],
     "pse_spread_col": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],

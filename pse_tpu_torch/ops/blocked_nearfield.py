@@ -14,25 +14,31 @@ vector with batched ``torch.bmm`` products (the JAX package's einsum GEMVs),
 forward u(c) += A(c) f(c+o) and transposed u(c+o) += A(c)^T f(c).
 
 Neither function has a TPU kernel behind it in the JAX package (both are
-plain XLA there), so both stay PyTorch here.  They compute in float32 on
-every device: bfloat16 blocks are upcast for the product, as jnp.einsum
-promotes them against float32 vectors, and float32 products run in full
-float32 (the port never enables TF32).  Sums are gathers, never scattered
-atomics, so a rerun is bitwise equal.
+plain XLA there).  On CUDA tensors ``build_pair_blocks`` is one launch of
+``csrc/blocked.cu``, bitwise its plain version
+``build_pair_blocks_reference`` on the card, which CPU tensors run;
+``matvec_cells`` stays PyTorch.  It computes in float32 on every device:
+bfloat16 blocks are upcast for the product, as jnp.einsum promotes them
+against float32 vectors, and float32 products run in full float32 (the port
+never enables TF32).  Sums are gathers, never scattered atomics, so a rerun
+is bitwise equal.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
+from .. import kernels, trace
 from ..box import Box
 from ..cellbins import BinSpec, CellBins, half_space_offsets, roll_cells
 from .banded_nearfield import pair_components
-from .chebyshev import ChebPair
+from .chebyshev import ChebPair, device_coeffs
 
 # The product's float32 copy of bfloat16 blocks is made for a group of
 # offsets at a time, at most this many bytes (every offset at once at the
@@ -94,7 +100,7 @@ def make_nf_spec(
     )
 
 
-def build_pair_blocks(
+def build_pair_blocks_reference(
     bins: CellBins,
     box: Box,
     spec: NfSpec,
@@ -102,7 +108,9 @@ def build_pair_blocks(
     ewald_cut: float,
     ewald_dr: float,
 ) -> torch.Tensor:
-    """The (noff, 6, C, cap, cap) pair blocks in the block dtype.
+    """Plain version of the build: the (noff, 6, C, cap, cap) pair blocks
+    in the block dtype, from ``pair_components`` on rolled copies of the
+    slot arrays.
 
     One offset at a time into one pre-allocated tensor: the float32
     temporaries of an offset (C, cap, cap each) are freed before the next,
@@ -125,6 +133,74 @@ def build_pair_blocks(
         for k, a in enumerate(comps):
             out[oi, k] = a             # rounds to the block dtype
         del comps
+    return out
+
+
+# the C entry's limits (csrc/blocked.cu): 8 slots a thread, at most 256
+# threads a block and 27 offsets
+_MAX_CAP, _MAX_OFFSETS = 8 * 256, 27
+
+
+@lru_cache(maxsize=8)
+def _cheb_operand(cheb: ChebPair, device: str) -> torch.Tensor:
+    """The kernel's coefficient operand, copied to ``device`` once."""
+    return device_coeffs(cheb, device)
+
+
+def build_pair_blocks(
+    bins: CellBins,
+    box: Box,
+    spec: NfSpec,
+    cheb: ChebPair,
+    ewald_cut: float,
+    ewald_dr: float,
+) -> torch.Tensor:
+    """The (noff, 6, C, cap, cap) pair blocks in the block dtype, for the
+    offsets of ``spec`` (the half stencil, or a contiguous part of it on a
+    sharded engine): one launch of ``csrc/blocked.cu`` on CUDA tensors,
+    bitwise ``build_pair_blocks_reference`` there; the reference itself on
+    CPU tensors."""
+    if bins.px.device.type == "cpu":
+        return build_pair_blocks_reference(bins, box, spec, cheb, ewald_cut,
+                                           ewald_dr)
+    cap = spec.bins.cap
+    C = spec.bins.n_cells_total
+    slots = (bins.px, bins.py, bins.pz, bins.mask)
+    if any(t.shape != (C, cap) or t.dtype != torch.float32
+           or not t.is_contiguous() for t in slots):
+        raise ValueError(f"build_pair_blocks: the slot arrays must be "
+                         f"contiguous float32 ({C}, {cap})")
+    offsets = [tuple(int(x) for x in o) for o in spec.offsets]
+    if cap % 8 or cap > _MAX_CAP or not 1 <= len(offsets) <= _MAX_OFFSETS:
+        raise ValueError(f"build_pair_blocks: cap {cap} must be a multiple "
+                         f"of 8 up to {_MAX_CAP}, with 1 to {_MAX_OFFSETS} "
+                         f"offsets (not {len(offsets)})")
+    dev = bins.px.device
+    a_dtype = getattr(torch, spec.block_dtype)
+    if a_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"build_pair_blocks: block dtype float32 or "
+                         f"bfloat16, not {spec.block_dtype}")
+    out = torch.empty((len(offsets), 6, C, cap, cap), dtype=a_dtype,
+                      device=dev)
+    f32 = np.float32
+    L = [f32(x) for x in box.L]
+    ncx, ncy, ncz = spec.bins.n_cells
+    # the scalars as the plain path's CUDA kernels take them: the box
+    # lengths' float32 reciprocals (a tensor over a Python scalar is a
+    # product with it), tilt * Ly rounded once, the cuts rounded to float32
+    rL = [float(f32(1.0) / x) for x in L]
+    offs = (ctypes.c_int * (3 * len(offsets)))(*[x for o in offsets
+                                                  for x in o])
+    p = kernels.ptr
+    rc = kernels.library().pse_blocked_build(
+        *(p(t) for t in slots), p(_cheb_operand(cheb, str(dev))),
+        cheb.degree + 1, float(f32(cheb.mid)),
+        float(f32(float(ewald_cut) ** 2)), float(f32(float(ewald_dr) ** 2)),
+        ncx, ncy, ncz, cap, *(float(x) for x in L), *rL,
+        float(f32(box.tilt_xy * box.L[1])), len(offsets), offs,
+        int(a_dtype == torch.bfloat16), p(out), kernels.stream_of(out))
+    trace.count("launch.build_pair_blocks")
+    kernels.check("build_pair_blocks", rc)
     return out
 
 

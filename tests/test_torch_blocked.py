@@ -30,8 +30,11 @@ from pse_tpu.ops import noise as jn          # noqa: E402
 import pse_tpu_torch as P                    # noqa: E402
 from pse_tpu_torch import cellbins as pc     # noqa: E402
 from pse_tpu_torch import integrator as pi   # noqa: E402
+from pse_tpu_torch import trace              # noqa: E402
 from pse_tpu_torch.ops import blocked_farfield as pbf   # noqa: E402
 from pse_tpu_torch.ops import blocked_nearfield as pbn  # noqa: E402
+from pse_tpu_torch.parallel.sharding import (  # noqa: E402
+    _ranges as _sharding_ranges)
 
 N, L = 1080, 24.0
 ORACLE = pathlib.Path(__file__).parent / "data" / "oracle_gate.npz"
@@ -123,22 +126,49 @@ def _nf_inputs(error, tilt, seed=21):
     return jcfg, tcfg, (jbins, jbox), (tbins, tbox)
 
 
+def _stencil_part(spec, part):
+    """[a, b) of spec.offsets: the whole stencil (part None) or the part-th
+    of the four contiguous ranges parallel/sharding.py gives four devices
+    (range 0 holds (0,0,0), range 1 does not)."""
+    n = len(spec.offsets)
+    return (0, n) if part is None else _sharding_ranges(n, 4)[part]
+
+
+@pytest.mark.parametrize("part", [None, 0, 1])
 @pytest.mark.parametrize("tilt", [0.0, 0.3])
 @pytest.mark.parametrize("error,bound", [(1e-3, 2.0 ** -8),   # bf16 blocks
                                          (1e-4, 1e-6)])       # f32 blocks
-def test_build_pair_blocks_matches_jax(error, bound, tilt):
+def test_build_pair_blocks_matches_jax(error, bound, tilt, part):
     """The (noff, 6, C, cap, cap) blocks in the block dtype, in max |diff|
     / max |JAX| (bf16: one rounding step where the float32 values differ in
-    their last bit)."""
+    their last bit); over the whole stencil and over a contiguous part of
+    it, as a sharded engine builds its own offsets, against that part of
+    the JAX package's whole build."""
     jcfg, tcfg, (jbins, jbox), (tbins, tbox) = _nf_inputs(error, tilt)
     p = jcfg.params
+    a, b = _stencil_part(tcfg.nf_spec, part)
     want = jbn.build_pair_blocks(jbins, jbox, jcfg.nf_spec, jcfg.cheb,
-                                 p.ewald_cut, p.ewald_dr)
-    got = pbn.build_pair_blocks(tbins, tbox, tcfg.nf_spec, tcfg.cheb,
-                                p.ewald_cut, p.ewald_dr)
+                                 p.ewald_cut, p.ewald_dr)[a:b]
+    spec = tcfg.nf_spec._replace(offsets=tcfg.nf_spec.offsets[a:b])
+    got = pbn.build_pair_blocks(tbins, tbox, spec, tcfg.cheb, p.ewald_cut,
+                                p.ewald_dr)
     assert got.shape == want.shape
     assert got.dtype == getattr(torch, jcfg.nf_spec.block_dtype)
     assert _rel_max(got.float().numpy(), want.astype(jnp.float32)) <= bound
+
+
+@pytest.mark.parametrize("error", [1e-3, 1e-4])
+def test_build_pair_blocks_on_cpu_is_the_plain_path(error):
+    """On CPU tensors build_pair_blocks is build_pair_blocks_reference, bit
+    for bit, and launches no kernel (the card's kernel counts
+    launch.build_pair_blocks)."""
+    _, tcfg, _, (tbins, tbox) = _nf_inputs(error, 0.3)
+    p = tcfg.params
+    args = (tbins, tbox, tcfg.nf_spec, tcfg.cheb, p.ewald_cut, p.ewald_dr)
+    before = trace.counters().get("launch.build_pair_blocks", 0)
+    got = pbn.build_pair_blocks(*args)
+    assert trace.counters().get("launch.build_pair_blocks", 0) == before
+    assert torch.equal(got, pbn.build_pair_blocks_reference(*args))
 
 
 @pytest.mark.parametrize("error", [1e-3, 1e-4])

@@ -24,9 +24,10 @@ torch = pytest.importorskip("torch")
 from pse_tpu_torch import integrator as pi              # noqa: E402
 from pse_tpu_torch import make_box, make_params, trace  # noqa: E402
 from pse_tpu_torch.cellbins import (                    # noqa: E402
-    BinSpec, Fill, bin_columns, bin_particles, fill_cells,
-    fill_cells_reference, fill_operands, vec_to_cells)
+    BinSpec, CellBins, Fill, bin_columns, bin_particles, fill_cells,
+    fill_cells_reference, fill_operands, half_space_offsets, vec_to_cells)
 from pse_tpu_torch.ops import banded_nearfield as bdn   # noqa: E402
+from pse_tpu_torch.ops import blocked_nearfield as bnf  # noqa: E402
 from pse_tpu_torch.ops import column_farfield as cff    # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -828,3 +829,130 @@ def test_sharded_gather_is_bitwise_one_device_on_card(cuda):
     assert torch.equal(pi.mobility(cfg, pos, f, 0.03)[0],
                        sharding.make_sharded_mobility(cfg, mesh)(pos, f,
                                                                  0.03)[0])
+
+
+# -- the blocked engine's pair blocks (csrc/blocked.cu) ----------------------
+
+def _bitwise(a, b):
+    """Same dtype, shape and bits (the sign of a zero included)."""
+    iv = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.view(iv), b.view(iv)))
+
+
+def _pair_blocks_checked(bins, box, spec, cfg):
+    """build_pair_blocks on the card: bitwise (torch.equal, and bit for
+    bit) build_pair_blocks_reference on the same CUDA tensors, one launch
+    a call, a rerun bitwise equal; returns the blocks."""
+    p = cfg.params
+    args = (bins, box, spec, cfg.cheb, p.ewald_cut, p.ewald_dr)
+    before = trace.counters().get("launch.build_pair_blocks", 0)
+    got = bnf.build_pair_blocks(*args)
+    assert trace.counters()["launch.build_pair_blocks"] == before + 1
+    want = bnf.build_pair_blocks_reference(*args)
+    assert got.dtype == getattr(torch, spec.block_dtype)
+    assert torch.equal(got, want) and _bitwise(got, want)
+    assert _bitwise(bnf.build_pair_blocks(*args), got)
+    assert trace.counters()["launch.build_pair_blocks"] == before + 2
+    return got
+
+
+def _uniform(n, L, seed):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(
+        rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32),
+        device="cuda")
+
+
+def _blocked_config(n, L, dtype):
+    params = make_params(xi=0.5, error=1e-3 if dtype == "bfloat16" else 1e-4,
+                         L=L)
+    cfg = pi.make_config(params, n, device="cuda", block_dtype=dtype)
+    assert cfg.engine == "blocked" and cfg.nf_spec.block_dtype == dtype
+    return cfg
+
+
+@pytest.mark.parametrize("part", [None, 0, 1])
+@pytest.mark.parametrize("tilt", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_blocks_kernel_is_bitwise_the_plain_version(cuda, dtype, tilt,
+                                                         part):
+    """N = 1080 in L = 24 (cells (3, 3, 3), cap 80, not a multiple of 32),
+    float32 blocks with the degree-12 fit (the general recurrence) and
+    bfloat16 with the degree-8 one (unrolled), over the whole half stencil
+    and over the first two of the four contiguous parts
+    parallel/sharding.py passes four devices (the first holds (0,0,0));
+    each part is that part of the whole build."""
+    from pse_tpu_torch.parallel.sharding import _ranges
+
+    cfg = _blocked_config(1080, 24.0, dtype)
+    assert cfg.cheb.degree == (8 if dtype == "bfloat16" else 12)
+    pos, box = _uniform(1080, 24.0, seed=3), make_box(24.0, tilt)
+    bins = bin_particles(pos, box, cfg.nf_spec.bins)
+    offs = cfg.nf_spec.offsets
+    a, b = (0, len(offs)) if part is None else _ranges(len(offs), 4)[part]
+    spec = cfg.nf_spec._replace(offsets=offs[a:b])
+    got = _pair_blocks_checked(bins, box, spec, cfg)
+    if part is not None:
+        whole = _pair_blocks_checked(bins, box, cfg.nf_spec, cfg)
+        assert _bitwise(got, whole[a:b].contiguous())
+    assert bool(got.float().abs().amax() > 0)
+
+
+def _hand_bins(spec, L, counts, seed):
+    """CellBins on spec's grid with counts[c] particles in cell c, uniform
+    inside the cell, in slots 0 .. counts[c] - 1; padded slots have mask 0
+    and positions 0 (the CellBins contract)."""
+    ncs = np.array(spec.n_cells)
+    C, cap = spec.n_cells_total, spec.cap
+    rng = np.random.default_rng(seed)
+    xyz = np.zeros((3, C, cap), np.float32)
+    mask = np.zeros((C, cap), np.float32)
+    for c in range(C):
+        at = np.array([c // (ncs[1] * ncs[2]), (c // ncs[2]) % ncs[1],
+                       c % ncs[2]])
+        n = counts[c]
+        p = -L / 2 + (at + rng.uniform(size=(n, 3))) * (L / ncs)
+        xyz[:, c, :n] = p.T
+        mask[c, :n] = 1.0
+    t = [torch.as_tensor(a, device="cuda") for a in (*xyz, mask)]
+    return CellBins(*t, None, None, None, None)
+
+
+@pytest.mark.parametrize("cap", [16, 40, 112])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pair_blocks_kernel_at_empty_full_and_ragged_cells(cuda, dtype, cap):
+    """Cells (3, 4, 5) of L = 24 filled by hand: cell 0 empty, cell 1 full
+    (n = cap), cell 2 ragged, the others at random occupancies, tilt 0.3;
+    at cap 16 (the small-box fallback's: N = 64 in L = 24), 40 (not a
+    multiple of 32) and 112 (the main path's): the blocks bitwise the
+    plain version's, and zero in every slot pair of an empty slot."""
+    cfg = _blocked_config(1080, 24.0, dtype)
+    spec = bnf.NfSpec(bins=BinSpec(n_cells=(3, 4, 5), cap=cap),
+                      offsets=half_space_offsets(1), block_dtype=dtype)
+    rng = np.random.default_rng(cap)
+    counts = rng.integers(0, cap + 1, size=spec.bins.n_cells_total)
+    counts[:3] = (0, cap, cap // 2 + 3)
+    bins = _hand_bins(spec.bins, 24.0, counts, seed=cap)
+    got = _pair_blocks_checked(bins, make_box(24.0, 0.3), spec, cfg)
+    empty = (bins.mask == 0)[None, None, :, :, None]     # rows of empty slots
+    assert bool(empty[0, 0, 0].all())                      # the empty cell
+    assert not bool((got.float() * empty).any())
+    assert bool(got[:, :, 1].float().abs().amax() > 0)     # the full cell
+
+
+def test_pair_blocks_kernel_on_the_fallback_configs(cuda):
+    """make_config's banded -> blocked fallbacks on small boxes: N = 64 in
+    L = 24 (too sparse to band: cap 16, bfloat16) and N = 1080 in L = 24 at
+    error 1e-4 (float32 blocks, degree 12), tilt 0.3: bitwise the plain
+    version."""
+    for n, error, cap, dtype in ((64, 1e-3, 16, "bfloat16"),
+                                 (1080, 1e-4, 80, "float32")):
+        cfg = pi.make_config(make_params(xi=0.5, error=error, L=24.0), n,
+                             engine="banded", device="cuda")
+        assert cfg.engine == "blocked"
+        assert (cfg.nf_spec.bins.cap, cfg.nf_spec.block_dtype) == (cap,
+                                                                   dtype)
+        pos, box = _uniform(n, 24.0, seed=5), make_box(24.0, 0.3)
+        bins = bin_particles(pos, box, cfg.nf_spec.bins)
+        _pair_blocks_checked(bins, box, cfg.nf_spec, cfg)
