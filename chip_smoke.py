@@ -142,8 +142,9 @@ Phases (each failure makes the script exit non-zero without the result line):
             against two one-RHS launches; build_banded_blocks bitwise
             build_mv's A and <= 1e-6 (float32) / 2^-8 (bfloat16) of the
             float32 plain build, the float32 build bitwise; contract <= 1e-5
-            (float32) and <= 5e-3 (bfloat16); spread <= 1e-5 (float32) and
-            <= 1e-4 (bfloat16) (max |diff| / max |plain|); build_mv u vs
+            (float32) and <= 5e-3 (bfloat16); the spread (float32 factors
+            of its own) <= 1e-5 of its plain version, also at the 1M cells'
+            shapes ([spread-1m]) (max |diff| / max |plain|); build_mv u vs
             matvec u <= 1e-6 and bitwise (build_mv ends in the matvec); matvec
             (one and two right-hand sides), spread and contract reruns
             bitwise equal; the fill also at the blocked near field's 3-D
@@ -152,9 +153,12 @@ Phases (each failure makes the script exit non-zero without the result line):
             blocks) and <= 2e-3 (bfloat16);
   [timing]  CUDA-event times of each kernel wrapper and its plain version,
             with the least time the card could take (bytes at 3.35 TB/s,
-            operations at the peak rate of their type), and torch.bmm as the
-            library yardstick of the spread (wxy with a pre-built X) and of
-            the contract (the pre-gathered windows with wxy), printed as one
+            operations at the peak rate of their type; the spread's bound
+            is its layout's bytes: forces and node coordinates read, window
+            moments written), and torch.bmm as the library yardstick of the
+            spread (float32 wxy with a pre-built X) and of the contract
+            (the pre-gathered windows with wxy); [spread-1m]: the spread
+            kernel, its plain version and its bound at N = 1M; printed as one
             JSON line; the fill and the banded kernels also as their kernel
             launches alone (CUDA-graph replay, without the wrapper's torch
             work): the fill, the matvec, build_mv at two right-hand sides
@@ -1402,7 +1406,9 @@ def _band_operands(config, pos, tilt):
 
 
 def _far_operands(config, pos, tilt, dtype, seed=11):
-    """Far-field bins with binned random forces, factors in ``dtype``."""
+    """The far field's spec in ``dtype``, the slots' node-space coordinates
+    (the spread's operand), binned random forces and the contract's
+    factors."""
     import torch
 
     from pse_tpu_torch import cellbins as cb
@@ -1417,7 +1423,8 @@ def _far_operands(config, pos, tilt, dtype, seed=11):
     bins, f = cb.bin_particles(
         pos, box, spec.bins,
         values=torch.randn(pos.shape, generator=g, device="cuda"))
-    return spec, bins, f, cff.build_col_factors(bins, box, spec, p)
+    return (spec, cff.spread_nodes(bins, box, p), f,
+            cff.build_col_factors(bins, box, spec, p))
 
 
 def _check_rerun(ph, label, got, fn):
@@ -1427,20 +1434,63 @@ def _check_rerun(ph, label, got, fn):
 
 
 def _check_spread(ph, results, config, pos, tilt, where):
+    """The spread kernel (float32 factors of its own, whatever the
+    contract's dtype) against its plain version, and a rerun."""
     from pse_tpu_torch.ops import column_farfield as cff
 
     p = config.params
-    for dtype, bound in (("float32", 1e-5), ("bfloat16", 1e-4)):
-        spec, _, f, fac = _far_operands(config, pos, tilt, dtype)
+    spec, nodes, f, _ = _far_operands(config, pos, tilt,
+                                      config.colff_spec.weight_dtype)
 
-        def run():
-            return cff.spread_moments_kernel(f, spec, p, fac)
-        got = run()
-        r, d = rel_max(got, cff.spread_moments(f, spec, p, fac))
-        ph.check(f"spread {dtype} tilt={tilt} {where}", r, bound)
-        _check_rerun(ph, f"spread {dtype} tilt={tilt} {where}", got, run)
-        if dtype == config.colff_spec.weight_dtype and where == "main":
-            results["spread_col"]["err"].append(d)
+    def run():
+        return cff.spread_moments_kernel(f, spec, p, nodes, tilt)
+    got = run()
+    r, d = rel_max(got, cff.spread_moments(f, spec, p, nodes, tilt))
+    ph.check(f"spread tilt={tilt} {where}", r, 1e-5)
+    _check_rerun(ph, f"spread tilt={tilt} {where}", got, run)
+    if where == "main":
+        results["spread_col"]["err"].append(d)
+    return spec, nodes, f
+
+
+def _spread_bound_bytes(spec, params):
+    """The bytes the spread kernel's layout moves at least: the slot forces
+    (3 float32) and node-space coordinates and mask (4) read, the window
+    moments (C x 9 sx sy x 3 Nz float32) written."""
+    C, cap = spec.bins.n_cells_total, spec.bins.cap
+    return (C * cap * 7 + C * 9 * spec.s[0] * spec.s[1] * 3 * params.Nz) * 4
+
+
+def phase_spread_1m(ph, results):
+    """The spread kernel at the 1M cells' shapes (BASELINE config 5's
+    vacancy lattice): against its plain version at tilts 0 and 0.3 with a
+    rerun, then kernel and plain time and its bound at tilt 0."""
+    import torch
+
+    from pse_tpu_torch import integrator, make_params
+    from pse_tpu_torch.ops import column_farfield as cff
+
+    pos_np, L = make_positions(HALO_1M_N, PHI, seed=0)
+    pos = torch.as_tensor(pos_np, device="cuda")
+    cfg = integrator.make_config(make_params(xi=XI, error=ERROR, L=L),
+                                 HALO_1M_N, thermal=False, engine="banded",
+                                 positions=pos_np, device="cuda")
+    p = cfg.params
+    for tilt in (0.3, 0.0):
+        spec, nodes, f = _check_spread(ph, results, cfg, pos, tilt, "1M")
+    r = results["spread_col"]
+    r.update(
+        ms_1m=cuda_ms(lambda: cff.spread_moments_kernel(f, spec, p, nodes,
+                                                        0.0), 20),
+        plain_ms_1m=cuda_ms(lambda: cff.spread_moments(f, spec, p, nodes,
+                                                       0.0), 3),
+        bound_ms_1m=1e3 * _spread_bound_bytes(spec, p) / HBM_BYTES_PER_S)
+    print(f"[spread-1m] C {spec.bins.n_cells_total} cap {spec.bins.cap} "
+          f"grid {p.Nx}x{p.Ny}x{p.Nz}: kernel {r['ms_1m']:.4f} ms, bound "
+          f"{r['bound_ms_1m']:.4f} ms (its layout's bytes), plain "
+          f"{r['plain_ms_1m']:.4f} ms")
+    del pos, f, nodes
+    torch.cuda.empty_cache()
 
 
 def _check_contract(ph, results, config, pos, tilt, where):
@@ -1832,24 +1882,27 @@ def phase_timing(sim, results):
           f"{results['contract_col']['library_ms']:.4f} ms")
     del vt
 
-    spec, _, fs, sfac = _far_operands(config, pos, tilt, cs.weight_dtype)
-    out_bytes = Cf * nn * 3 * p.Nz * 4
+    spec, nodes, fs, _ = _far_operands(config, pos, tilt, cs.weight_dtype)
     results["spread_col"].update(
-        ms=cuda_ms(lambda: cff.spread_moments_kernel(fs, spec, p, sfac), 20),
-        plain_ms=cuda_ms(lambda: cff.spread_moments(fs, spec, p, sfac), 5))
-    bound("spread_col", fs.numel() * 4 + w_bytes + out_bytes, flops,
-          cs.weight_dtype)
-    # the library yardstick: one batched product of wxy with a pre-built X
+        ms=cuda_ms(lambda: cff.spread_moments_kernel(fs, spec, p, nodes,
+                                                     tilt), 20),
+        plain_ms=cuda_ms(lambda: cff.spread_moments(fs, spec, p, nodes,
+                                                    tilt), 5))
+    bound("spread_col", _spread_bound_bytes(spec, p), 0)
+    # the library yardstick: one batched float32 product of wxy with a
+    # pre-built X, the dense product over every slot of a column
+    wxy, wz = cff._factors_f32(nodes[:3], nodes[3], tilt, spec, p)
     fp = fs * float(np.float32(p.spread_prefac))
-    X = (fp.permute(1, 0, 2)[:, :, None, :] * sfac.wz.float()[:, None]
-         ).reshape(Cf, 3 * p.Nz, cap).to(sfac.wxy.dtype)
+    X = (fp.permute(1, 0, 2)[:, :, None, :] * wz[:, None]
+         ).reshape(Cf, 3 * p.Nz, cap)
     Xt = X.transpose(1, 2)
     results["spread_col"]["library_ms"] = cuda_ms(
-        lambda: torch.bmm(sfac.wxy, Xt), 20)
-    fold_ms = cuda_ms(lambda: cff.spread_col_kernel(fs, spec, p, sfac), 20)
+        lambda: torch.bmm(wxy, Xt), 20)
+    fold_ms = cuda_ms(lambda: cff.spread_col_kernel(fs, spec, p, nodes,
+                                                    tilt), 20)
     print(f"  spread: moments kernel {results['spread_col']['ms']:.4f} ms, "
           f"with the torch overlap-add {fold_ms:.4f} ms, torch.bmm "
-          f"({sfac.wxy.dtype} in and out) {results['spread_col']['library_ms']:.4f} ms")
+          f"(float32) {results['spread_col']['library_ms']:.4f} ms")
 
 
 def phase_packed_timing(ph, simc, results):
@@ -2672,6 +2725,7 @@ def main() -> int:
                for name, _, _ in KERNELS}
     phase_kernels(ph, simf, results, simb, simg)
     phase_timing(simf, results)
+    phase_spread_1m(ph, results)
     phase_packed_timing(ph, simc, results)
     phase_blocked_timing(ph, simb, results, launches_b)
     phase_gather_timing(simg, results)
@@ -2700,7 +2754,8 @@ def main() -> int:
                                  "packed_kernel_ms", "packed_single_ms",
                                  "packed_single_kernel_ms", "packed_bound_ms",
                                  "packed_a_bytes", "single_a_bytes",
-                                 "live_a_bytes") if k in r},
+                                 "live_a_bytes", "ms_1m", "plain_ms_1m",
+                                 "bound_ms_1m") if k in r},
         })
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "

@@ -11,11 +11,13 @@ parent commit unpacked by ``git archive`` into the gitignored
 tree) run as they are there, on this checkout's operands.  Without it, this
 checkout is timed alone.
 
-Far field: ``spread_moments_kernel`` and ``contract_col_kernel`` (the
-default bfloat16 factors), held against their plain versions and a rerun,
-with the library yardsticks ``torch.bmm`` of wxy with a pre-built X (the
-spread's product) and of the pre-gathered windows with wxy (the contract's
-H).
+Far field: ``spread_moments_kernel`` (float32 factors from the slots'
+node-space coordinates; this checkout only, as the spread's C interface
+changed with them) and ``contract_col_kernel`` (the default bfloat16
+factors), held against their plain versions and a rerun, with the library
+yardsticks ``torch.bmm`` of the float32 wxy with a pre-built X (the
+spread's product) and of the pre-gathered windows with the bfloat16 wxy
+(the contract's H).
 
 Banded matvec: ``matvec_banded`` (one right-hand side, the default
 bfloat16 blocks), timed as the wrapper (with its torch work on the kernel's
@@ -593,38 +595,44 @@ def ab_far_field(libs, order, pos, L):
         pos, box, cs.bins,
         values=torch.randn(pos.shape, generator=g, device="cuda"))
     fac = cff.build_col_factors(bins, box, cs, p)
+    nodes = cff.spread_nodes(bins, box, p)
     grid = torch.randn((3, p.Nx, p.Ny, p.Nz), generator=g, device="cuda")
     calls = {
-        "spread": lambda: cff.spread_moments_kernel(f, cs, p, fac),
+        "spread": lambda: cff.spread_moments_kernel(f, cs, p, nodes, TILT),
         "contract": lambda: cff.contract_col_kernel(grid, cs, p, fac),
     }
-    plain = {"spread": cff.spread_moments(f, cs, p, fac),
+    plain = {"spread": cff.spread_moments(f, cs, p, nodes, TILT),
              "contract": cff.contract_col(grid, cs, p, fac)}
-    times = {k: {name: [] for name in calls} for k in libs}
-    device = {k: {name: [] for name in calls} for k in libs}
+
+    def calls_of(k):
+        return {n: fn for n, fn in calls.items()
+                if k == "this" or n != "spread"}
+
+    times = {k: {name: [] for name in calls_of(k)} for k in libs}
+    device = {k: {name: [] for name in calls_of(k)} for k in libs}
     checks = {}
     for k, lib in libs.items():
         kernels._lib = lib
         checks[k] = {}
-        for name, fn in calls.items():
+        for name, fn in calls_of(k).items():
             out = fn()
             checks[k][name] = {"rel_max": rel_max(out, plain[name])[0],
                                "rerun_bitwise": bool(torch.equal(fn(), out))}
     for _ in range(ROUNDS):
         for k in order:
             kernels._lib = libs[k]
-            for name, fn in calls.items():
+            for name, fn in calls_of(k).items():
                 times[k][name].append(cuda_ms(fn, REPS))
                 device[k][name].append(graph_ms(fn, REPS))
     kernels._lib = libs["this"]
 
     cap, C = cs.bins.cap, cs.bins.n_cells_total
+    wxy32, wz32 = cff._factors_f32(nodes[:3], nodes[3], TILT, cs, p)
     X = ((f * float(np.float32(p.spread_prefac))).permute(1, 0, 2)[:, :, None]
-         * fac.wz.float()[:, None]).reshape(C, 3 * p.Nz, cap
-                                            ).to(fac.wxy.dtype)
+         * wz32[:, None]).reshape(C, 3 * p.Nz, cap)
     Xt = X.transpose(1, 2)
     vt = cff._grid_to_windows(grid, cs, p, fac.wxy.dtype).transpose(1, 2)
-    library = {"spread_bmm": cuda_ms(lambda: torch.bmm(fac.wxy, Xt), REPS),
+    library = {"spread_bmm": cuda_ms(lambda: torch.bmm(wxy32, Xt), REPS),
                "contract_bmm": cuda_ms(lambda: torch.bmm(vt, fac.wxy), REPS)}
     return {
         "shapes": {"C": C, "NN": fac.wxy.shape[1], "Nz": p.Nz, "cap": cap,

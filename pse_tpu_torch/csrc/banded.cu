@@ -26,8 +26,15 @@
 //   * the window of tile t is in cyclic rank coordinates: lane w is rank
 //     j0 + w, slot j = rank (rank < nv) or rank - nv with z + Lz (rank >= nv),
 //     nv the neighbour's valid count; lanes w >= nv are masked;
-//   * the per-(offset, column, tile) z shift zsh is subtracted from the
-//     window z, so dz needs no per-pair minimum-image round;
+//   * the matvec subtracts the per-(offset, column, tile) z shift zsh from
+//     the window z, so its dz needs no per-pair minimum-image round; the
+//     build, which decides which pairs are valid, takes dz as the stored z
+//     separation less the lane's image, which for every valid pair is the
+//     minimum image in the float32 operations of
+//     box.min_image_components, so that a pair within rounding of rcut is
+//     valid from both of its slots (the offset-0 windows visit it twice;
+//     dx and dy there are exact negatives) and in the plain 9-offset
+//     version alike;
 //   * valid pairs have dr^2 <= d^2 < rcut^2, both slots occupied (slot masks
 //     are 0 or 1, the CellBins contract), and are not the self pair
 //     (excluded at offset 0 only); the Chebyshev branch select is at r = 2a;
@@ -69,7 +76,8 @@
 //     at a time: one 16-byte load or store per A plane and row (two at
 //     float32); G = W / 8 (rounded up to a power of two) threads cover a
 //     tile's lanes, and each tile group loads its window (neighbour slot by
-//     rank, the wrap's z + Lz applied) from global memory in coalesced rows
+//     rank; in the matvec, the wrap's z + Lz and zsh applied) from global
+//     memory in coalesced rows
 //     into its own shared-memory scratch, from which a thread reads its
 //     lanes in 16-byte loads into registers;
 //   * the matvec: one block per (column c, offset h), the own rows
@@ -608,9 +616,17 @@ __global__ void __launch_bounds__(THREADS, 2) build_tiles(Band b) {
   const float sx = __fadd_rn(wx * b.Lx, __fmul_rn(b.tilt, sy));
   const long long wt = ((long long)h * C + c) * T + t;
   const int j0 = b.j0[wt];
-  const float zs = b.zsh[wt];
+  // dz is the stored z separation less Lz times the lane's z image kz (its
+  // wrap, less the tile's zsh over Lz), rounded as
+  // box.min_image_components rounds the minimum image: where kz is the
+  // nearest image (every pair within rcut < Lz / 2, unless a tile's band
+  // spans nearly Lz) the two are the same float, and elsewhere |dz| > Lz /
+  // 2 > rcut; so the offset-0 windows, which visit a pair from both of its
+  // slots, take one d^2 for it
+  const float kzs = rintf(__fdiv_rn(b.zsh[wt], b.Lz));
   // its own rows, and its window's GL lanes, lane wl of each row by thread
-  // wl % G: rank q < nv is slot q, rank q >= nv is slot q - nv one period up
+  // wl % G: rank q < nv is slot q, rank q >= nv is slot q - nv (z as
+  // stored: the pair's z image comes from its separation)
   if (live) {
     for (int r = g; r < R; r += G) {
       const long long o = (long long)c * S + t * R + r;
@@ -624,7 +640,7 @@ __global__ void __launch_bounds__(THREADS, 2) build_tiles(Band b) {
       const long long o = (long long)nbr * S + min(wrap ? q - nv : q, S - 1);
       grp[wl] = __ldg(b.px + o) + sx;
       grp[GL + wl] = __ldg(b.py + o) + sy;
-      grp[2 * GL + wl] = (__ldg(b.pz + o) + (wrap ? b.Lz : 0.f)) - zs;
+      grp[2 * GL + wl] = __ldg(b.pz + o);
       grp[3 * GL + wl] = wl < nv ? __ldg(b.mask + o) : 0.f;
     }
   }
@@ -642,8 +658,12 @@ __global__ void __launch_bounds__(THREADS, 2) build_tiles(Band b) {
   lanes8(zw, 2);
   lanes8(mw, 3);
   unsigned mwb = 0;  // this thread's occupied lanes
+  float lzk[LPT];    // Lz kz of each lane
 #pragma unroll
-  for (int l = 0; l < LPT; ++l) mwb |= (live && lanes && mw[l] > 0.f) << l;
+  for (int l = 0; l < LPT; ++l) {
+    mwb |= (live && lanes && mw[l] > 0.f) << l;
+    lzk[l] = b.Lz * ((j0 + w0 + l >= nv ? 1.f : 0.f) - kzs);
+  }
   // every shuffle, ballot and __syncwarp takes the whole warp: a group
   // whose tile is empty or past the list runs along with no valid pair
   const bool warp_live = __any_sync(0xffffffffu, live);
@@ -690,7 +710,8 @@ __global__ void __launch_bounds__(THREADS, 2) build_tiles(Band b) {
       unsigned bits = 0;
 #pragma unroll
       for (int l = 0; l < LPT; ++l) {
-        const float dx = pi.x - xw[l], dy = pi.y - yw[l], dz = pi.z - zw[l];
+        const float dx = pi.x - xw[l], dy = pi.y - yw[l];
+        const float dz = __fsub_rn(__fsub_rn(pi.z, zw[l]), lzk[l]);
         d2[l] = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
                           __fmul_rn(dz, dz));
         bits |= (unsigned)(d2[l] < b.cut2 && d2[l] >= b.dr2) << l;

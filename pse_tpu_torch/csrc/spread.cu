@@ -3,386 +3,209 @@
 // Replaces the Pallas kernel pse_tpu/ops/column_farfield.py:417
 // `_spread_kernel` (launched by `spread_col_pallas`, :454).  Per column c of
 // the far-field grid (cap particle slots p, NN = 9 sx sy window xy nodes n,
-// M = 3 Nz (component, z) pairs m = k Nz + z):
-//     X[c, m, p]   = round_WT((prefac * f[k, c, p]) * wz[c, z, p])
-//     out[c, n, m] = sum_p wxy[c, n, p] * X[c, m, p]
-// X is an f32 product rounded once to the factor dtype WT, the rounding
-// point of the plain version (column_farfield.spread_moments) and of the JAX
-// package; products and sums are f32.  The xy overlap-add onto the grid
-// stays in torch (column_farfield._windows_to_grid), as in the JAX package.
+// 3 Nz (component, z) pairs):
+//     out[c, n, (k, z)] = sum_p wxy[c, n, p] (prefac f[k, c, p]) wz[c, z, p]
+// with float32 factors that the kernel computes itself from the slots'
+// node-space coordinates (column_farfield.spread_nodes, and _factors_f32's
+// float32 operations with centred node offsets, expf for torch.exp),
+// whatever dtype the contract's stored factors have: one product in bf16
+// loses the cancellation between the particles' Gaussians that M F of a
+// dense, nearly uniform suspension rests on (PERF.md).  The xy overlap-add
+// onto the grid stays in torch (column_farfield._windows_to_grid), as in
+// the JAX package.
 //
-// What bounds it on the H100: at bench scale (C = 576, NN = 144, Nz = 96,
-// cap 248, bf16 factors) it reads wxy 41.1 MB + wz 27.4 MB + f 1.7 MB and
-// writes 95.6 MB of moments, ~50 us at 3.35 TB/s; the 2 x 576 x 144 x 288 x
-// 248 ~ 11.9 GFLOP take ~12 us on bf16 tensor cores, so it is bound by
-// bytes, most of them the moments it writes.
-//
-// bf16 factors (the main path): one tensor-core GEMM per column, a TN
-// product (p is the fastest axis of wxy and of X), with mma.sync m16n8k16.
-// A block of 6 warps computes a 48 x 288 tile of out[c] (rows n, columns
-// m; at bench scale all 288 columns, so X is built once overall and each
-// column's wz rows are read by its 3 row tiles only).  It walks p in stages
-// of 128, double buffered: wxy and the column's wz rows stream in by 16-byte
-// cp.async, f through registers (scaled by prefac on the way to shared
-// memory).  A fragments come from ldmatrix; B = X fragments are built in
-// registers from wz and f, with the plain version's second multiply and its
-// one rounding, so X never touches memory.  Long stages keep the per-stage
-// wait and barrier few (2 at bench scale), which the H100 rewarded more
-// than deeper pipelines of short stages.  Rows are padded to 272 bytes so
-// ldmatrix and the B reads hit distinct banks.
-// Ragged edges (NN, M and cap need not be tile multiples: 729 x 81 x 312 at
-// the oracle's shapes) are zero-filled in the staging (p) or computed and
-// never stored (n, m), never masked in the products; a cap that is not a
-// multiple of 8 (or an unaligned operand) stages through scalar loads.  The
-// epilogue writes each thread's accumulator pairs as 8-byte stores.  The
-// products sum p in the tensor cores' order, not in ascending p, so the
-// bf16 moments differ from the plain version's by the order of f32 sums
-// (<= 1e-4 of the largest); every output has one writer, so reruns are
-// bitwise equal.
-//
-// float32 factors (error < 1e-3, or asked for) stay on the CUDA cores, where
-// the product is bound by operations (~0.18 ms at 67 TFLOP/s): TF32 would
-// keep ~10 mantissa bits and break the 1e-5 float32 bound.  A block
-// computes a 64 x 64 tile with 4 x 4 register tiles per thread, staging wxy
-// and X in shared memory as f32; each output is summed by one thread over p
-// in ascending order.
+// It sums only what the Gaussians reach in z: a block takes one column c
+// and a chunk of ZC z nodes, selects (in slot order, by ballots and a scan)
+// the occupied slots whose z lies within R + 1/2 nodes of the chunk, where
+// R (_z_reach) puts every term left out below 2^-30 of its slot's largest,
+// and has each thread sum, over those slots in order, the moments of one z
+// node and up to MAXJ window nodes n, 3 components each, in f32 FMAs.  Per
+// batch of LB selected slots, the block stages in shared memory the slots'
+// x and y offsets from the window's nodes (3 sx + 3 sy a slot), then wxy[n]
+// (9 sx sy a slot, from those offsets) and X = (prefac f) wz (3 ZC a slot).
+// At the 1M cell's shapes (C = 2916, NN = 144, Nz = 216, ZC = 16, R = 5) a
+// slot joins ~1.7 chunks, so a block sums ~43 slots where a dense product
+// over the column sums cap = 440; it takes 2.87 ms a launch there, against
+// 3.08 for the bf16 tensor-core product it replaced (PERF.md).  No float
+// atomics: every output has one writer summing in slot order, so reruns
+// are bitwise equal.
 #include "common.cuh"
-#include "mma.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------- float32
-namespace f32 {
-
-constexpr int BM = 64, BN = 64, BK = 16;
 constexpr int THREADS = 256;
+constexpr int LB = 32;     // selected slots staged per batch
+constexpr int MAXJ = 12;   // window nodes summed by one thread at most
 
-__global__ void __launch_bounds__(THREADS)
-    spread_kernel(const float* __restrict__ f, const float* __restrict__ wxy,
-                  const float* __restrict__ wz, int C, int NN, int Nz,
-                  int cap, float prefac, float* __restrict__ out) {
-  // p-major chunks, rows padded by one word against bank conflicts
-  __shared__ float As[BK][BM + 1];  // wxy chunk
-  __shared__ float Bs[BK][BN + 1];  // X chunk
-  const int c = blockIdx.z;
-  const int n0 = blockIdx.y * BM, m0 = blockIdx.x * BN;
-  const int M = 3 * Nz;
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const long long CP = (long long)C * cap;
-  const float* wxy_c = wxy + (long long)c * NN * cap;
-  const float* wz_c = wz + (long long)c * Nz * cap;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int p0 = 0; p0 < cap; p0 += BK) {
-    // each thread stages 4 elements of each tile; consecutive threads take
-    // consecutive p of one row (contiguous in device memory)
-#pragma unroll
-    for (int e = 0; e < (BM * BK) / THREADS; ++e) {
-      const int idx = tid + e * THREADS;
-      const int kk = idx % BK, r = idx / BK;
-      const int p = p0 + kk;
-      const int n = n0 + r, m = m0 + r;
-      As[kk][r] = (n < NN && p < cap) ? wxy_c[(long long)n * cap + p] : 0.f;
-      float x = 0.f;
-      if (m < M && p < cap) {
-        const int k = m / Nz, z = m - k * Nz;
-        const float fp = __fmul_rn(f[k * CP + (long long)c * cap + p], prefac);
-        x = __fmul_rn(fp, wz_c[(long long)z * cap + p]);
-      }
-      Bs[kk][r] = x;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out_c = out + (long long)c * NN * M;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty + 16 * i;
-    if (n >= NN) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int m = m0 + tx + 16 * j;
-      if (m < M) out_c[(long long)n * M + m] = acc[i][j];
-    }
-  }
-}
-
-cudaError_t launch(const float* f, const void* wxy, const void* wz, int C,
-                   int NN, int Nz, int cap, float prefac, float* out,
-                   cudaStream_t stream) {
-  dim3 grid((3 * Nz + BN - 1) / BN, (NN + BM - 1) / BM, C);
-  spread_kernel<<<grid, THREADS, 0, stream>>>(
-      f, static_cast<const float*>(wxy), static_cast<const float*>(wz), C, NN,
-      Nz, cap, prefac, out);
-  return cudaGetLastError();
-}
-
-}  // namespace f32
-
-// ------------------------------------------------------ bf16, tensor cores
-namespace tc {
-
-constexpr int BM = 48;             // wxy rows n per block (3 m16 tiles)
-constexpr int BN = 288;            // moment columns m per block (36 n8)
-constexpr int BK = 128;            // slots p per stage (8 k16 steps)
-constexpr int SK = BK + 8;         // padded shared row: 272 bytes
-constexpr int STAGES = 2;          // copy stages in flight
-constexpr int WARPS = 6;           // side by side along m
-constexpr int THREADS = 32 * WARPS;
-constexpr int MT = BM / 16;             // m16 tiles per warp (3)
-constexpr int NT = BN / WARPS / 8;      // n8 tiles per warp (6)
-constexpr int GPR = BK / 8;             // 8-slot groups per staged row
-constexpr int F_PIECES = 3 * BK / 4;    // 4-slot pieces of f per stage (96)
-
-using bf16 = __nv_bfloat16;
-
-// Shared memory of one stage; STAGES of them, then the wz rows of every
-// stage (ZR rows each, ZR = min(Nz, BN): a tile's columns need at most that
-// many distinct z).
-struct Stage {
-  bf16 a[BM][SK];   // wxy [n][p]
-  float f[3][BK];   // prefac * f [k][p]
+struct Args {
+  const float* f;       // (3, C, cap) slot forces, zero in pad slots
+  const float* nodes;   // (4, C, cap) node-space x, y, z and the slot mask
+  float* out;           // (C, NN, 3 Nz) moments
+  int ncx, ncy, sx, sy, Nx, Ny, Nz, cap, R, zc, nzc;
+  float Lx, Ly, Lz, tilt, nexp, prefac;   // nexp = -expfac
 };
 
-// 8 consecutive bf16 elements from p on, zero past `cap` (scalar loads).
-__device__ __forceinline__ uint4 load8_bf16(const bf16* row, int p, int cap,
-                                            bool valid) {
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const uint32_t lo = (valid && p + 2 * j < cap)
-                            ? __bfloat16_as_ushort(row[p + 2 * j]) : 0u;
-    const uint32_t hi = (valid && p + 2 * j + 1 < cap)
-                            ? __bfloat16_as_ushort(row[p + 2 * j + 1]) : 0u;
-    w[j] = lo | (hi << 16);
-  }
-  return make_uint4(w[0], w[1], w[2], w[3]);
+// L (node - pf) / N at the nearest image, as column_farfield._node_delta
+// rounds it: the slot's offset from its nearest node k and the integer
+// node - k are exact, so only the small difference is rounded
+__device__ __forceinline__ float delta(int node, float pf, int N, float L) {
+  const float k = rintf(pf), n = (float)N;
+  float o = __fsub_rn((float)node, k);
+  o = __fsub_rn(o, __fmul_rn(n, rintf(__fdiv_rn(o, n))));
+  return __fmul_rn(L, __fdiv_rn(__fsub_rn(o, __fsub_rn(pf, k)), n));
 }
 
-template <bool VEC>
-__global__ void __launch_bounds__(THREADS, 2)
-    spread_kernel(const float* __restrict__ f, const bf16* __restrict__ wxy,
-                  const bf16* __restrict__ wz, int C, int NN, int Nz, int cap,
-                  float prefac, bool store2, float* __restrict__ out) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Stage* stage = reinterpret_cast<Stage*>(smem_raw);
-  bf16(*zs)[SK] = reinterpret_cast<bf16(*)[SK]>(smem_raw +
-                                                 STAGES * sizeof(Stage));
-  const int c = blockIdx.z;
-  const int n0 = blockIdx.y * BM, m0 = blockIdx.x * BN;
-  const int M = 3 * Nz;
-  const int ZR = Nz < BN ? Nz : BN;             // wz rows per stage
-  const int zlo = Nz <= BN ? 0 : m0 % Nz;       // z of the first row
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, t = lane % 4;
+__global__ void __launch_bounds__(THREADS, 3) spread_kernel(const Args a) {
+  extern __shared__ __align__(16) float sm[];
+  const int NN = 9 * a.sx * a.sy, ZC = a.zc, NG = THREADS / ZC;
+  const int WX = 3 * a.sx, WY = 3 * a.sy;            // window nodes per axis
+  float* s_w = sm;                                   // [LB][NN]
+  float* s_x = s_w + LB * NN;                        // [LB][3][ZC]
+  float* s_d = s_x + LB * 3 * ZC;                    // [LB][WX + WY]
+  int* s_sel = reinterpret_cast<int*>(s_d + LB * (WX + WY));   // [cap]
+  int* s_cnt = s_sel + a.cap;                        // [THREADS / 32 + 1]
+  const int c = blockIdx.x / a.nzc, z0 = blockIdx.x % a.nzc * ZC;
+  const int zn = min(ZC, a.Nz - z0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long CP = (long long)a.ncx * a.ncy * a.cap;
+  const float* px = a.nodes + (long long)c * a.cap;
+  const float* py = px + CP;
+  const float* pz = py + CP;
+  const float* pm = pz + CP;
+  const int bx = c / a.ncy, by = c % a.ncy;
 
-  const bf16* wxy_c = wxy + (long long)c * NN * cap;
-  const int fk = tid / (BK / 4), fpc = tid % (BK / 4) * 4;
-  const float* f_row = f + ((long long)(tid < F_PIECES ? fk : 0) * C + c) *
-                               cap;
-  // Where this thread's B columns (one per n8 tile) read X's factors:
-  // the wz row (z) and the f row (k) of column m; columns past M compute
-  // outputs that are never stored, so they are clamped, not masked.
-  int zo[NT], fo[NT];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) {
-    int m = m0 + warp * NT * 8 + j * 8 + g;
-    m = m < M ? m : M - 1;
-    const int k = m / Nz, z = m - k * Nz;
-    zo[j] = (z - zlo + (z < zlo ? Nz : 0)) * SK;
-    fo[j] = k * BK;
+  // the occupied slots, in slot order, within R + 1/2 nodes of the chunk
+  const float half = 0.5f * (float)(zn - 1), mid = (float)z0 + half;
+  int n_sel = 0;
+  for (int base = 0; base < a.cap; base += THREADS) {
+    const int p = base + tid;
+    bool take = false;
+    if (p < a.cap && pm[p] != 0.f) {
+      float d = fabsf(mid - pz[p]);
+      d = fminf(d, (float)a.Nz - d);
+      take = d - half <= (float)a.R + 0.5f;
+    }
+    const unsigned b = __ballot_sync(0xffffffffu, take);
+    if (lane == 0) s_cnt[warp] = __popc(b);
+    __syncthreads();
+    if (tid == 0) {
+      int sum = 0;
+      for (int w = 0; w < THREADS / 32; ++w) {
+        const int v = s_cnt[w];
+        s_cnt[w] = sum;
+        sum += v;
+      }
+      s_cnt[THREADS / 32] = sum;
+    }
+    __syncthreads();
+    if (take) s_sel[n_sel + s_cnt[warp] + __popc(b & ((1u << lane) - 1u))] = p;
+    n_sel += s_cnt[THREADS / 32];
+    __syncthreads();
   }
-  const int stages = (cap + BK - 1) / BK;
 
-  // Stage st of wxy and wz into buffer st % STAGES (16-byte cp.async,
-  // zero-filled past the edges, or scalar loads where rows are ragged);
-  // f comes into the register fv, stored scaled by put_f.
-  auto fetch = [&](int st, float4& fv) {
-    if (st < stages) {
-      const int buf = st % STAGES, p0 = st * BK;
-      for (int q = tid; q < BM * GPR; q += THREADS) {
-        const int r = q / GPR, pc = q % GPR * 8, p = p0 + pc;
-        const bool ok = n0 + r < NN;
-        const bf16* row = wxy_c + (long long)(ok ? n0 + r : 0) * cap;
-        if constexpr (VEC) {
-          cp_async16(&stage[buf].a[r][pc], ok && p < cap ? row + p : wxy,
-                     ok && p < cap);
-        } else {
-          *reinterpret_cast<uint4*>(&stage[buf].a[r][pc]) =
-              load8_bf16(row, p, cap, ok);
-        }
+  const int zl = tid % ZC, ng = tid / ZC;
+  float acc[MAXJ][3];
+#pragma unroll
+  for (int j = 0; j < MAXJ; ++j) acc[j][0] = acc[j][1] = acc[j][2] = 0.f;
+
+  for (int b0 = 0; b0 < n_sel; b0 += LB) {
+    const int nb = min(LB, n_sel - b0);
+    // each slot's x and y offsets from the window's nodes (dxo, dyo)
+    for (int q = tid; q < nb * (WX + WY); q += THREADS) {
+      const int i = q / (WX + WY), e = q - i * (WX + WY), p = s_sel[b0 + i];
+      s_d[q] = e < WX ? delta((bx - 1) * a.sx + e, px[p], a.Nx, a.Lx)
+                      : delta((by - 1) * a.sy + e - WX, py[p], a.Ny, a.Ly);
+    }
+    __syncthreads();
+    for (int q = tid; q < nb * NN; q += THREADS) {
+      const int i = q / NN, n = q - i * NN;
+      const int o = n / (a.sx * a.sy), r = n - o * (a.sx * a.sy);
+      const int ox = o / 3, oy = o - ox * 3, ix = r / a.sy, iy = r - ix * a.sy;
+      const float* d = s_d + i * (WX + WY);
+      const float dxo = d[ox * a.sx + ix], dyo = d[WX + oy * a.sy + iy];
+      const float dx = __fadd_rn(dxo, __fmul_rn(a.tilt, dyo));
+      s_w[q] = expf(__fmul_rn(a.nexp, __fadd_rn(__fmul_rn(dx, dx),
+                                                 __fmul_rn(dyo, dyo))));
+    }
+    for (int q = tid; q < nb * ZC; q += THREADS) {
+      const int i = q / ZC, z = q - i * ZC, p = s_sel[b0 + i];
+      float wz = 0.f;
+      if (z < zn) {
+        const float dz = delta(z0 + z, pz[p], a.Nz, a.Lz);
+        wz = __fmul_rn(expf(__fmul_rn(__fmul_rn(a.nexp, dz), dz)), pm[p]);
       }
-      for (int q = tid; q < ZR * GPR; q += THREADS) {
-        const int r = q / GPR, pc = q % GPR * 8, p = p0 + pc;
-        const int z = zlo + r - (zlo + r >= Nz ? Nz : 0);
-        const bf16* row = wz + ((long long)c * Nz + z) * cap;
-        bf16* dst = &zs[buf * ZR + r][pc];
-        if constexpr (VEC) {
-          cp_async16(dst, p < cap ? row + p : wz, p < cap);
-        } else {
-          *reinterpret_cast<uint4*>(dst) = load8_bf16(row, p, cap, true);
-        }
-      }
-      if (tid < F_PIECES) {
-        const int p = p0 + fpc;
-        if constexpr (VEC) {
-          fv = p < cap ? *reinterpret_cast<const float4*>(f_row + p)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-        } else {
-          fv.x = p < cap ? f_row[p] : 0.f;
-          fv.y = p + 1 < cap ? f_row[p + 1] : 0.f;
-          fv.z = p + 2 < cap ? f_row[p + 2] : 0.f;
-          fv.w = p + 3 < cap ? f_row[p + 3] : 0.f;
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        s_x[(i * 3 + k) * ZC + z] = __fmul_rn(
+            __fmul_rn(a.f[((long long)k * a.ncx * a.ncy + c) * a.cap + p],
+                      a.prefac),
+            wz);
+    }
+    __syncthreads();
+    for (int i = 0; i < nb; ++i) {
+      const float x0 = s_x[(i * 3) * ZC + zl];
+      const float x1 = s_x[(i * 3 + 1) * ZC + zl];
+      const float x2 = s_x[(i * 3 + 2) * ZC + zl];
+      const float* w = s_w + i * NN;
+#pragma unroll
+      for (int j = 0; j < MAXJ; ++j) {
+        const int n = ng + j * NG;
+        if (n < NN) {
+          const float wn = w[n];
+          acc[j][0] = __fmaf_rn(wn, x0, acc[j][0]);
+          acc[j][1] = __fmaf_rn(wn, x1, acc[j][1]);
+          acc[j][2] = __fmaf_rn(wn, x2, acc[j][2]);
         }
       }
     }
-    cp_async_commit();
-  };
-  // the plain version's first f32 multiply, prefac * f
-  auto put_f = [&](int st, const float4& fv) {
-    if (st < stages && tid < F_PIECES)
-      *reinterpret_cast<float4*>(&stage[st % STAGES].f[fk][fpc]) =
-          make_float4(__fmul_rn(fv.x, prefac), __fmul_rn(fv.y, prefac),
-                      __fmul_rn(fv.z, prefac), __fmul_rn(fv.w, prefac));
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int i = 0; i < MT; ++i)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
-
-  float4 fv = make_float4(0.f, 0.f, 0.f, 0.f);
-  for (int st = 0; st < STAGES - 1; ++st) {
-    fetch(st, fv);
-    put_f(st, fv);
-  }
-  for (int st = 0; st < stages; ++st) {
-    cp_async_wait<STAGES - 2>();  // stage st has landed
-    __syncthreads();  // ... for every thread; stage st - 1 is done
-    fetch(st + STAGES - 1, fv);
-    const Stage& S = stage[st % STAGES];
-    const bf16* Z = &zs[(st % STAGES) * ZR][0];
-#pragma unroll
-    for (int ks = 0; ks < BK; ks += 16) {
-      uint32_t a[MT][4], b[NT][2];
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-        ldmatrix_x4(a[i], &S.a[i * 16 + (lane & 15)][ks + (lane >> 4) * 8]);
-      // B = X fragments built in registers: X = round((prefac f) * wz),
-      // the plain version's second multiply and its one rounding
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int p = ks + 2 * t;
-        const uint32_t z0 = *reinterpret_cast<const uint32_t*>(Z + zo[j] + p);
-        const uint32_t z8 =
-            *reinterpret_cast<const uint32_t*>(Z + zo[j] + p + 8);
-        const float2 f0 = *reinterpret_cast<const float2*>(&S.f[0][0] +
-                                                           fo[j] + p);
-        const float2 f8 = *reinterpret_cast<const float2*>(&S.f[0][0] +
-                                                           fo[j] + p + 8);
-        b[j][0] = pack_bf16x2(__fmul_rn(f0.x, bf16_lo(z0)),
-                              __fmul_rn(f0.y, bf16_hi(z0)));
-        b[j][1] = pack_bf16x2(__fmul_rn(f8.x, bf16_lo(z8)),
-                              __fmul_rn(f8.y, bf16_hi(z8)));
-      }
-#pragma unroll
-      for (int i = 0; i < MT; ++i)
-#pragma unroll
-        for (int j = 0; j < NT; ++j)
-          mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-    }
-    put_f(st + STAGES - 1, fv);
+    __syncthreads();
   }
 
-  float* out_c = out + (long long)c * NN * M;
+  if (zl < zn) {
+    const int M = 3 * a.Nz;
 #pragma unroll
-  for (int i = 0; i < MT; ++i) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int n = n0 + i * 16 + g + 8 * h;
-      if (n >= NN) continue;
-      float* row = out_c + (long long)n * M;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int m = m0 + warp * NT * 8 + j * 8 + 2 * t;
-        const float v0 = acc[i][j][2 * h], v1 = acc[i][j][2 * h + 1];
-        if (store2 && m < M) {
-          *reinterpret_cast<float2*>(row + m) = make_float2(v0, v1);
-        } else {
-          if (m < M) row[m] = v0;
-          if (m + 1 < M) row[m + 1] = v1;
-        }
+    for (int j = 0; j < MAXJ; ++j) {
+      const int n = ng + j * NG;
+      if (n < NN) {
+        float* row = a.out + ((long long)c * NN + n) * M + z0 + zl;
+        row[0] = acc[j][0];
+        row[a.Nz] = acc[j][1];
+        row[2 * a.Nz] = acc[j][2];
       }
     }
   }
 }
 
-bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
-template <bool VEC>
-cudaError_t run(dim3 grid, const float* f, const bf16* a, const bf16* z,
-                int C, int NN, int Nz, int cap, float prefac, bool store2,
-                float* out, cudaStream_t stream) {
-  const size_t smem = STAGES * (sizeof(Stage) + sizeof(bf16) * SK *
-                                                    (Nz < BN ? Nz : BN));
-  cudaError_t e = allow_smem(spread_kernel<VEC>, smem);
+cudaError_t launch(Args a, cudaStream_t stream) {
+  const int NN = 9 * a.sx * a.sy;
+  // the widest z chunk (a power of two up to 32) whose window nodes fit
+  // MAXJ a thread
+  int zc = 32;
+  while (zc > 1 && (NN + THREADS / zc - 1) / (THREADS / zc) > MAXJ) zc /= 2;
+  if ((NN + THREADS / zc - 1) / (THREADS / zc) > MAXJ)
+    return cudaErrorInvalidValue;
+  a.zc = zc;
+  a.nzc = (a.Nz + zc - 1) / zc;
+  const long long blocks = (long long)a.ncx * a.ncy * a.nzc;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const size_t smem =
+      sizeof(float) * ((size_t)LB * NN + (size_t)LB * 3 * zc +
+                       (size_t)LB * 3 * (a.sx + a.sy)) +
+      sizeof(int) * ((size_t)a.cap + THREADS / 32 + 1);
+  cudaError_t e = allow_smem(spread_kernel, smem);
   if (e != cudaSuccess) return e;
-  spread_kernel<VEC><<<grid, THREADS, smem, stream>>>(
-      f, a, z, C, NN, Nz, cap, prefac, store2, out);
+  spread_kernel<<<(unsigned)blocks, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
-
-cudaError_t launch(const float* f, const void* wxy, const void* wz, int C,
-                   int NN, int Nz, int cap, float prefac, float* out,
-                   cudaStream_t stream) {
-  dim3 grid((3 * Nz + BN - 1) / BN, (NN + BM - 1) / BM, C);
-  const bf16* a = static_cast<const bf16*>(wxy);
-  const bf16* z = static_cast<const bf16*>(wz);
-  // 16-byte staging needs every row (cap slots) and operand 16-byte aligned
-  const bool vec = cap % 8 == 0 && aligned16(f) && aligned16(a) &&
-                   aligned16(z);
-  // 8-byte stores need an even row length and an 8-byte aligned output
-  const bool store2 = Nz % 2 == 0 &&
-                      (reinterpret_cast<uintptr_t>(out) & 7) == 0;
-  return vec ? run<true>(grid, f, a, z, C, NN, Nz, cap, prefac, store2, out,
-                         stream)
-             : run<false>(grid, f, a, z, C, NN, Nz, cap, prefac, store2, out,
-                          stream);
-}
-
-}  // namespace tc
 
 }  // namespace
 
-extern "C" int pse_spread_col(const float* f, const void* wxy, const void* wz,
-                              int w_bf16, int C, int NN, int Nz, int cap,
-                              float prefac, float* out, cudaStream_t stream) {
-  if (C > 65535) return (int)cudaErrorInvalidValue;  // grid.z limit
-  cudaError_t e =
-      w_bf16 ? tc::launch(f, wxy, wz, C, NN, Nz, cap, prefac, out, stream)
-             : f32::launch(f, wxy, wz, C, NN, Nz, cap, prefac, out, stream);
-  return (int)e;
+extern "C" int pse_spread_col(const float* f, const float* nodes, int ncx,
+                              int ncy, int sx, int sy, int Nx, int Ny, int Nz,
+                              int cap, float Lx, float Ly, float Lz,
+                              float tilt, float nexp, float prefac, int R,
+                              float* out, cudaStream_t stream) {
+  Args a{f, nodes, out, ncx, ncy, sx, sy, Nx, Ny, Nz, cap, R, 0, 0,
+         Lx, Ly, Lz, tilt, nexp, prefac};
+  return (int)launch(a, stream);
 }

@@ -421,9 +421,9 @@ def _bin_both(config: StepConfig, pos, box: Box, binner, forces):
 
 
 def _ff_shared(config: StepConfig, ff_bins, box: Box):
-    """Per-step far-field data shared by spread and contract: the z-column
-    factors, or the stored weights (None when the spec builds them per
-    use)."""
+    """Per-step far-field data: the contract's z-column factors, or the
+    stored weights that spread and contract share (None when the spec
+    builds them per use)."""
     p = config.params
     with trace.span("prepare.ff_factors"):
         if config.colff_spec is not None:
@@ -474,8 +474,9 @@ class _CellEngine(_Engine):
         """The binned forces ctx.ff_f onto the grid (3, Nx, Ny, Nz)."""
         cfg = self.config
         if cfg.colff_spec is not None:
-            return cff.spread_col_kernel(ctx.ff_f, cfg.colff_spec, cfg.params,
-                                         ctx.ff_factors)
+            return cff.spread_col_kernel(
+                ctx.ff_f, cfg.colff_spec, cfg.params,
+                cff.spread_nodes(ctx.ff_bins, box, cfg.params), box.tilt_xy)
         return bff.spread_blocked(ctx.ff_bins, ctx.ff_f, box, cfg.ff_spec,
                                   cfg.params, ctx.ff_factors)
 
@@ -643,8 +644,9 @@ def _far_field(config: StepConfig, eng, ctx, box: Box, device, noise_args):
         with trace.span("far_field.spread"):
             grid_f = eng.spread(ctx, box)
         with trace.span("far_field.fft"):
-            ghat = apply_green(torch.fft.rfftn(grid_f, dim=(1, 2, 3)),
-                               kvec, W)
+            fhat = torch.fft.rfftn(grid_f, dim=(1, 2, 3))
+        with trace.span("far_field.green"):
+            ghat = apply_green(fhat, kvec, W)
     if noise_args is not None:
         T, dt, generator, uniforms = noise_args
         with trace.span("far_field.fft"):
@@ -697,6 +699,15 @@ def _matvec(eng, ctx):
     return matvec_t
 
 
+def _build_mv(eng, ctx, ft):
+    """``eng.build_mv(ctx, ft)`` in a ``near_field.build_mv`` span, its
+    right-hand sides (three rows of ``ft`` each) counted in
+    ``near_field.rhs``."""
+    trace.count("near_field.rhs", ft.shape[0] // 3)
+    with trace.span("near_field.build_mv"):
+        return eng.build_mv(ctx, ft)
+
+
 def step_impl(config: StepConfig, eng, state: State, forces, T, dt,
               shear_rate, new_tilt=None, uniforms=None):
     """``step`` with the engine ``eng`` (``engine_of(config)``, or a halo
@@ -734,14 +745,11 @@ def _step_body(config: StepConfig, eng, state: State, forces, T, dt,
         if config.has_forces and eng.two_rhs:
             # M F rides the build as a second right-hand side: one pass
             # over A covers the build, M F and the first Lanczos matvec
-            with trace.span("near_field.build_mv"):
-                ctx, u0 = eng.build_mv(ctx, torch.cat([ctx.nf_f,
-                                                       psi / vnorm]))
+            ctx, u0 = _build_mv(eng, ctx, torch.cat([ctx.nf_f, psi / vnorm]))
             u = u + eng.psi_result_to_particles(ctx, u0[0:3])
             w0 = u0[3:6]
         else:
-            with trace.span("near_field.build_mv"):
-                ctx, w0 = eng.build_mv(ctx, psi / vnorm)
+            ctx, w0 = _build_mv(eng, ctx, psi / vnorm)
             if config.has_forces:
                 # blocked and gather: M F is a matvec of its own on the
                 # forces in the engine's slots
@@ -759,8 +767,7 @@ def _step_body(config: StepConfig, eng, state: State, forces, T, dt,
         u = u + _velocity_scale(T, dt) * eng.psi_result_to_particles(
             ctx, u_sqrt)
     else:
-        with trace.span("near_field.build_mv"):
-            ctx, uF = eng.build_mv(ctx, ctx.nf_f)
+        ctx, uF = _build_mv(eng, ctx, ctx.nf_f)
         u = u + eng.psi_result_to_particles(ctx, uF)
 
     with trace.span("update"):
@@ -798,8 +805,7 @@ def brownian_displacement(config: StepConfig, pos, tilt_xy, step: int,
                                 (T, dt, gen, None))
         psi = eng.slots_of_psi(ctx, gen, None)
         vnorm = torch.sqrt(torch.sum(psi * psi))
-        with trace.span("near_field.build_mv"):
-            ctx, w0 = eng.build_mv(ctx, psi / vnorm)
+        ctx, w0 = _build_mv(eng, ctx, psi / vnorm)
         with trace.span("lanczos"):
             u_sqrt, m_used, hit_cap = lanczos.sqrt_mreal(
                 _matvec(eng, ctx), psi, p.error, m_start, config.m_max,
@@ -830,8 +836,7 @@ def mobility_impl(config: StepConfig, eng, pos, forces, tilt_xy=0.0):
         box = _box_of(config, tilt_xy)
         with trace.span("prepare"):
             ctx, overflow = eng.prepare(pos, box, forces)
-        with trace.span("near_field.build_mv"):
-            ctx, u0 = eng.build_mv(ctx, ctx.nf_f)
+        ctx, u0 = _build_mv(eng, ctx, ctx.nf_f)
         u_real = eng.psi_result_to_particles(ctx, u0)
         with trace.span("far_field"):
             u_wave = _far_field(config, eng, ctx, box, pos.device, None)

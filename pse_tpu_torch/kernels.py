@@ -49,7 +49,8 @@ _SIGNATURES = {
                           _P],
     "pse_contract_col": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P, _P],
-    "pse_spread_col": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P, _P],
+    "pse_spread_col": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,
+                       _F, _F, _F, _I, _P, _P],
 }
 
 _lib = None

@@ -361,12 +361,41 @@ def _pair_coefficients(dx, dy, dz, mi, mj, *, cheb, cut2, dr2, same_slot):
             d2_safe)
 
 
+def _min_image_z(dz, Lz):
+    """The z line of ``box.min_image_components``."""
+    return dz - Lz * torch.round(dz / Lz)
+
+
+def _column_shift(spec: BandSpec, offset, L, tilt, dev):
+    """(sx, sy), each (C,) float32: the xy image shift of column c's
+    neighbour c + ``offset`` on the periodic column grid, as the kernels
+    add it to the window's coordinates (sx = wx Lx + tilt sy, sy = wy Ly,
+    w the wrap across the grid's edge)."""
+    ncx, ncy, _ = spec.bins.n_cells
+    C = ncx * ncy
+    ox, oy = offset
+    cx = torch.arange(C, device=dev) // ncy
+    cy = torch.arange(C, device=dev) % ncy
+    wx = (cx + ox >= ncx).float() - (cx + ox < 0).float()
+    wy = (cy + oy >= ncy).float() - (cy + oy < 0).float()
+    sy = wy * float(np.float32(L[1]))
+    return wx * float(np.float32(L[0])) + float(np.float32(tilt)) * sy, sy
+
+
 def pair_components(xi, yi, zi, mi, xj, yj, zj, mj, tilt, *, L, cheb,
                      cut2, dr2, same_slot):
     """The six symmetric RPY-Ewald tensor components of every (row, lane)
     pair, with the minimum image of the tilted box (plain version)."""
     dx, dy, dz = min_image_components(Box(L, tilt), xi - xj, yi - yj,
                                       zi - zj)
+    return separation_components(dx, dy, dz, mi, mj, cheb=cheb, cut2=cut2,
+                                 dr2=dr2, same_slot=same_slot)
+
+
+def separation_components(dx, dy, dz, mi, mj, *, cheb, cut2, dr2,
+                          same_slot):
+    """The six components of every (row, lane) pair at separation
+    (dx, dy, dz)."""
     imrr, bco, d2 = _pair_coefficients(dx, dy, dz, mi, mj, cheb=cheb,
                                        cut2=cut2, dr2=dr2,
                                        same_slot=same_slot)
@@ -383,7 +412,15 @@ def matvec_banded_reference(bins: CellBins, tilt_xy, spec: BandSpec,
                             self_mobility) -> torch.Tensor:
     """Plain banded matvec (3, C, S): the same cyclic-window math as the
     kernels over all 9 offsets (j0 from ``compute_windows`` with every
-    offset), windows gathered, pair functions rebuilt, f32 unrounded."""
+    offset), windows gathered, pair functions rebuilt, f32 unrounded.
+
+    Each pair's separation is the one the kernels' build takes, visited
+    from either slot: dx, dy with the column grid's image shift s added to
+    the neighbour's coordinates at the 5 stored offsets (x_i - (x_j + s))
+    and taken off the own ones at the 4 mirrored ones ((x_i - s) - x_j,
+    the exact negative of the stored offset's value from the other slot),
+    dz the minimum image of z_i - z_j; so both decide a pair within
+    rounding of rcut alike."""
     ncx, ncy, _ = spec.bins.n_cells
     C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
     T = S // R
@@ -428,11 +465,17 @@ def matvec_banded_reference(bins: CellBins, tilt_xy, spec: BandSpec,
         def tile(k):
             return own[k][:, t0:t0 + tc, :, None]            # (C, tc, R, 1)
 
-        comps = pair_components(
-            tile(0), tile(1), tile(2), tile(3),
-            win[0][:, :, None, :], win[1][:, :, None, :],
-            win[2][:, :, None, :], mj[:, :, None, :], tilt,
-            L=L, cheb=cheb, cut2=float(ewald_cut) ** 2,
+        sx, sy = (a[:, None, None, None]
+                  for a in _column_shift(spec, spec.offsets[oi], L, tilt,
+                                         dev))
+        xj, yj, zj = (win[k][:, :, None, :] for k in range(3))
+        if oi < N_HALF:
+            dx, dy = tile(0) - (xj + sx), tile(1) - (yj + sy)
+        else:
+            dx, dy = (tile(0) - sx) - xj, (tile(1) - sy) - yj
+        comps = separation_components(
+            dx, dy, _min_image_z(tile(2) - zj, L[2]), tile(3),
+            mj[:, :, None, :], cheb=cheb, cut2=float(ewald_cut) ** 2,
             dr2=float(ewald_dr) ** 2, same_slot=same,
         )                                                    # 6 x (C,tc,R,W)
         fw_b = fw[:, :, :, None, :]
@@ -720,16 +763,13 @@ def window_geometry(bins: CellBins, tilt_xy, spec: BandSpec, L, j0, n_valid,
     C, S, R, W = ncx * ncy, spec.bins.cap, spec.rows, spec.window
     T = S // R
     dev = bins.px.device
-    Lx, Ly, Lz = (float(np.float32(x)) for x in L)
-    tilt = float(np.float32(tilt_xy))
+    Lz = float(np.float32(L[2]))
     ox, oy = spec.offsets[h]
     cx = torch.arange(C, device=dev) // ncy
     cy = torch.arange(C, device=dev) % ncy
     nbr = ((cx + ox) % ncx) * ncy + (cy + oy) % ncy
-    wx = ((cx + ox >= ncx).float() - (cx + ox < 0).float())[:, None, None]
-    wy = ((cy + oy >= ncy).float() - (cy + oy < 0).float())[:, None, None]
-    sy = wy * Ly
-    sx = wx * Lx + tilt * sy
+    sx, sy = (a[:, None, None]
+              for a in _column_shift(spec, (ox, oy), L, tilt_xy, dev))
     lanes = torch.arange(W, device=dev)
     nv = n_valid.long()[nbr][:, None, None]                    # (C, 1, 1)
     rank = j0[h].long()[:, :, None] + lanes                     # (C, T, W)
@@ -759,17 +799,26 @@ def build_banded_blocks_reference(bins: CellBins, tilt_xy, spec: BandSpec,
                                   n_valid, zsh) -> torch.Tensor:
     """Plain version of the build: A (1, C, 2, S, 5W) = (imrr, bco/d^2) of
     the 5 stored offsets side by side on the lane axis, from the pair
-    coefficients ``matvec_banded_reference`` uses, rounded to the block
+    coefficients ``matvec_banded_reference`` uses (dx, dy from the window's
+    shifted coordinates, dz the minimum image of the pair's z separation,
+    so a pair within rounding of rcut is valid in both or in neither;
+    valid only in the z image the window gives it), rounded to the block
     dtype."""
     ncx, ncy, _ = spec.bins.n_cells
     C, S, W = ncx * ncy, spec.bins.cap, spec.window
+    Lz = float(np.float32(L[2]))
     planes = []
     for h in range(N_HALF):
-        dx, dy, dz, mi, mj, same, _, _ = window_geometry(
+        dx, dy, wdz, mi, mj, same, nbr, slot = window_geometry(
             bins, tilt_xy, spec, L, j0, n_valid, zsh, h)
+        dz = _min_image_z(bins.pz.reshape(C, -1, spec.rows, 1)
+                          - bins.pz[nbr[:, None, None], slot][:, :, None, :],
+                          Lz)
+        # valid only in the window's own z image (the matvec's geometry)
+        other = (wdz - dz).abs() > Lz / 2
         imrr, bco, d2 = _pair_coefficients(
             dx, dy, dz, mi, mj, cheb=cheb, cut2=float(ewald_cut) ** 2,
-            dr2=float(ewald_dr) ** 2, same_slot=same)
+            dr2=float(ewald_dr) ** 2, same_slot=same | other)
         planes.append(torch.stack([imrr, bco / d2]).reshape(2, C, S, W))
     A = torch.cat(planes, dim=-1)                          # (2, C, S, 5W)
     return A.transpose(0, 1)[None].to(getattr(torch, spec.block_dtype)

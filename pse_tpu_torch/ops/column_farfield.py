@@ -11,7 +11,11 @@ quadrature is the bilinear form
 ``contract_col_kernel`` runs ``csrc/contract.cu`` on CUDA tensors and the
 plain version on CPU tensors.  The spread is its transpose: per column the
 window moments out_c = wxy_c (f_c (x) wz_c)^T, overlap-added onto the grid
-along x and y (``_windows_to_grid``); ``spread_col`` is the plain version,
+along x and y (``_windows_to_grid``).  It always takes float32 factors,
+computed from the slots' node-space coordinates (``spread_nodes``) and
+never stored: one product in a narrower weight dtype loses the cancellation
+between the particles' Gaussians that M F of a dense, nearly uniform
+suspension rests on (PERF.md).  ``spread_col`` is the plain version,
 ``spread_moments_kernel`` runs ``csrc/spread.cu`` for the moments on CUDA
 tensors and ``spread_col_kernel`` folds them.  Reference semantics: gpu_stokes_Spread_kernel /
 gpu_stokes_Contract_kernel (Mobility.cu:114-252, 325-477).
@@ -41,7 +45,8 @@ class ColFfSpec(NamedTuple):
 
 
 class ColFactors(NamedTuple):
-    """Per-step Gaussian factors (cap minor), in the weight dtype."""
+    """Per-step Gaussian factors of the contract (cap minor), in the weight
+    dtype."""
 
     wxy: torch.Tensor   # (C, 9 sx sy, cap) joint xy window factor (tilted)
     wz: torch.Tensor    # (C, Nz, cap) full-column z factor, mask folded
@@ -113,6 +118,31 @@ def build_col_factors(
 ) -> ColFactors:
     """Gaussian factors of every slot: wxy over the 3x3 window's xy nodes in
     offset-major order (ox, oy, sx, sy), wz over the full z column."""
+    wxy, wz = _factors_f32(_node_fractions_xy(bins, box, params), bins.mask,
+                           box.tilt_xy, spec, params)
+    dtype = _weight_dtype(spec)
+    return ColFactors(wxy=wxy.to(dtype), wz=wz.to(dtype))
+
+
+def _node_delta(node, pf, N):
+    """(node - pf) / N wrapped to the nearest image, with each slot's
+    offset from its nearest node taken first (``pf - k`` and the integer
+    ``node - k`` are exact), so the one rounding is of a small number: the
+    spread's factors, where the window's near nodes decide M F."""
+    k = torch.round(pf)
+    o = node - k
+    o = o - N * torch.round(o / N)
+    return (o - (pf - k)) / N
+
+
+def _factors_f32(nodes, mask, tilt, spec: ColFfSpec, params: PSEParams,
+                 centred: bool = False):
+    """float32 (wxy (C, 9 sx sy, cap), wz (C, Nz, cap)) of the slots at
+    node-space coordinates ``nodes`` = (x, y, z), each (C, cap), with the
+    slot ``mask`` folded into wz.  The contract's factors take the JAX
+    package's node / N - pf / N, which rounds two numbers near 1 (an
+    error of ~L 2^-24 in each separation); ``centred`` takes
+    ``_node_delta`` instead (the spread's)."""
     sx, sy = spec.s
     ncx, ncy, _ = spec.bins.n_cells
     C = ncx * ncy
@@ -120,37 +150,37 @@ def build_col_factors(
     Nx, Ny, Nz = params.Nx, params.Ny, params.Nz
     L = params.L
     expfac = params.spread_expfac
-    dev = bins.px.device
-    pfx, pfy, pfz = _node_fractions_xy(bins, box, params)
+    pfx, pfy, pfz = nodes
+    dev = pfx.device
 
     bx, by = np.meshgrid(np.arange(ncx), np.arange(ncy), indexing="ij")
     bx = torch.as_tensor(bx.reshape(-1), dtype=torch.int32, device=dev)
     by = torch.as_tensor(by.reshape(-1), dtype=torch.int32, device=dev)
 
-    def ext_frac_delta(b, s, pf, N):
-        node = (b[:, None] - 1) * s + torch.arange(3 * s, dtype=torch.int32,
-                                                   device=dev)
-        fd = node[:, :, None].to(pf.dtype) / N - (pf / N)[:, None, :]
-        return fd - torch.round(fd)                   # (C, 3s, cap)
+    def frac_delta(node, pf, N):                       # (C, nodes, cap)
+        node = node.to(pf.dtype)[:, :, None]
+        if centred:
+            return _node_delta(node, pf[:, None, :], N)
+        fd = node / N - (pf / N)[:, None, :]
+        return fd - torch.round(fd)
 
-    fdx = ext_frac_delta(bx, sx, pfx, Nx)
-    fdy = ext_frac_delta(by, sy, pfy, Ny)
-    nodez = torch.arange(Nz, dtype=pfz.dtype, device=dev)
-    fdz = nodez[None, :, None] / Nz - (pfz / Nz)[:, None, :]
-    fdz = fdz - torch.round(fdz)                      # (C, Nz, cap)
+    def window_nodes(b, s):
+        return (b[:, None] - 1) * s + torch.arange(3 * s, dtype=torch.int32,
+                                                   device=dev)
+
+    fdx = frac_delta(window_nodes(bx, sx), pfx, Nx)
+    fdy = frac_delta(window_nodes(by, sy), pfy, Ny)
+    fdz = frac_delta(torch.arange(Nz, device=dev)[None].expand(C, Nz), pfz,
+                     Nz)
 
     dyu = L[1] * fdy
     dz = L[2] * fdz
     dxo = (L[0] * fdx).reshape(C, 3, sx, cap)
     dyo = dyu.reshape(C, 3, sy, cap)
-    dx = dxo[:, :, None, :, None, :] + box.tilt_xy * dyo[:, None, :, None]
-    dtype = _weight_dtype(spec)
+    dx = dxo[:, :, None, :, None, :] + tilt * dyo[:, None, :, None]
     wxy = torch.exp(-expfac * (dx * dx + (dyo * dyo)[:, None, :, None]))
-    wz = torch.exp(-expfac * dz * dz) * bins.mask[:, None, :]
-    return ColFactors(
-        wxy=wxy.reshape(C, 9 * sx * sy, cap).to(dtype),
-        wz=wz.to(dtype),
-    )
+    wz = torch.exp(-expfac * dz * dz) * mask[:, None, :]
+    return wxy.reshape(C, 9 * sx * sy, cap), wz
 
 
 def _grid_to_windows(grid: torch.Tensor, spec: ColFfSpec, params: PSEParams,
@@ -231,64 +261,89 @@ def _windows_to_grid(out: torch.Tensor, spec: ColFfSpec, params: PSEParams):
     return grid.reshape(3, params.Nx, params.Ny, params.Nz)
 
 
-def spread_moments(f_cells: torch.Tensor, spec: ColFfSpec, params: PSEParams,
-                   factors: ColFactors) -> torch.Tensor:
-    """Plain version of the spread kernel: (C, 9 sx sy, 3 Nz) window moments
-    out[c, n, (k, z)] = sum_p wxy[c, n, p] X[c, (k, z), p].
+def spread_nodes(bins: CellBins, box: Box, params: PSEParams):
+    """(4, C, cap) float32: the slots' node-space x, y, z and mask, the
+    operand the spread computes its factors from."""
+    return torch.stack([*_node_fractions_xy(bins, box, params),
+                        bins.mask.to(torch.float32)])
 
-    X = (prefac f) (x) wz is an f32 product rounded once to the weight dtype,
-    the JAX package's rounding point; the products are summed in f32."""
+
+def spread_moments(f_cells: torch.Tensor, spec: ColFfSpec, params: PSEParams,
+                   nodes: torch.Tensor, tilt: float) -> torch.Tensor:
+    """Plain version of the spread kernel: (C, 9 sx sy, 3 Nz) window moments
+    out[c, n, (k, z)] = sum_p wxy[c, n, p] X[c, (k, z), p], with the float32
+    factors of the slots at ``nodes`` (``spread_nodes``) in a box of xy
+    tilt ``tilt`` and X = (prefac f) (x) wz, all in float32 whatever the
+    spec's weight dtype."""
     C = spec.bins.n_cells_total
     cap = spec.bins.cap
-    dtype = _weight_dtype(spec)
+    wxy, wz = _factors_f32(nodes[:3], nodes[3], tilt, spec, params,
+                           centred=True)
     fp = f_cells.to(torch.float32) * np.float32(params.spread_prefac).item()
-    X = (fp.permute(1, 0, 2)[:, :, None, :] * factors.wz.float()[:, None]
-         ).reshape(C, 3 * params.Nz, cap).to(dtype)
-    return torch.einsum("cnp,cmp->cnm", factors.wxy.float(), X.float())
+    X = (fp.permute(1, 0, 2)[:, :, None, :] * wz[:, None]
+         ).reshape(C, 3 * params.Nz, cap)
+    return torch.einsum("cnp,cmp->cnm", wxy, X)
+
+
+def _z_reach(params: PSEParams) -> int:
+    """The z nodes on each side of a slot's nearest node that the spread's
+    float32 kernel sums: past R + 1/2 nodes a Gaussian factor is below
+    2^-30 of its peak, under float32's resolution of the slot's largest
+    terms."""
+    hz = params.L[2] / params.Nz
+    return max(0, math.ceil(math.sqrt(30.0 * math.log(2.0)
+                                      / params.spread_expfac) / hz - 0.5))
 
 
 def spread_col(f_cells: torch.Tensor, spec: ColFfSpec, params: PSEParams,
-               factors: ColFactors) -> torch.Tensor:
+               nodes: torch.Tensor, tilt: float) -> torch.Tensor:
     """Plain version: the force-moment grid (3, Nx, Ny, Nz) of the slot
     forces ``f_cells`` (3, C, cap), whose padded slots are zero."""
-    return _windows_to_grid(spread_moments(f_cells, spec, params, factors),
-                            spec, params)
+    return _windows_to_grid(
+        spread_moments(f_cells, spec, params, nodes, tilt), spec, params)
 
 
 def spread_moments_kernel(f_cells: torch.Tensor, spec: ColFfSpec,
-                          params: PSEParams, factors: ColFactors):
+                          params: PSEParams, nodes: torch.Tensor,
+                          tilt: float):
     """(C, 9 sx sy, 3 Nz) window moments: ``csrc/spread.cu`` on CUDA
-    tensors, the plain ``spread_moments`` on CPU tensors."""
+    tensors, the plain ``spread_moments`` on CPU tensors.  The kernel
+    computes the float32 factors of ``nodes`` itself, and each window
+    node of a column sums, in slot order, the slots whose nearest z node
+    lies within ``_z_reach`` nodes of its own; the terms left out are each
+    below 2^-30 of their slot's largest."""
     if f_cells.device.type == "cpu":
-        return spread_moments(f_cells, spec, params, factors)
+        return spread_moments(f_cells, spec, params, nodes, tilt)
     sx, sy = spec.s
-    C, cap = spec.bins.n_cells_total, spec.bins.cap
-    Nz = params.Nz
-    nn = 9 * sx * sy
-    dtype = _weight_dtype(spec)
+    ncx, ncy, _ = spec.bins.n_cells
+    C, cap = ncx * ncy, spec.bins.cap
     f = f_cells.to(torch.float32).contiguous()
-    wxy, wz = factors.wxy.contiguous(), factors.wz.contiguous()
-    if (f.shape != (3, C, cap) or wxy.shape != (C, nn, cap)
-            or wz.shape != (C, Nz, cap) or wxy.dtype != dtype
-            or wz.dtype != dtype):
-        raise ValueError("spread_moments_kernel: operand shapes/dtypes do "
-                         "not match the spec")
-    out = torch.empty((C, nn, 3 * Nz), dtype=torch.float32, device=f.device)
+    nodes = nodes.to(torch.float32).contiguous()
+    if f.shape != (3, C, cap) or nodes.shape != (4, C, cap):
+        raise ValueError("spread_moments_kernel: operand shapes do not match "
+                         "the spec")
+    out = torch.empty((C, 9 * sx * sy, 3 * params.Nz), dtype=torch.float32,
+                      device=f.device)
+    L = params.L
     p = kernels.ptr
     rc = kernels.library().pse_spread_col(
-        p(f), p(wxy), p(wz), int(dtype == torch.bfloat16), C, nn, Nz, cap,
-        float(np.float32(params.spread_prefac)), p(out), kernels.stream_of(f),
+        p(f), p(nodes), ncx, ncy, sx, sy, params.Nx, params.Ny, params.Nz,
+        cap, float(np.float32(L[0])), float(np.float32(L[1])),
+        float(np.float32(L[2])), float(np.float32(tilt)),
+        float(np.float32(-params.spread_expfac)),
+        float(np.float32(params.spread_prefac)), _z_reach(params), p(out),
+        kernels.stream_of(f),
     )
     trace.count("launch.spread_moments_kernel")
     kernels.check("spread_moments_kernel", rc)
     return out
 
 
-
 def spread_col_kernel(f_cells: torch.Tensor, spec: ColFfSpec,
-                      params: PSEParams, factors: ColFactors):
+                      params: PSEParams, nodes: torch.Tensor, tilt: float):
     """(3, Nx, Ny, Nz) force-moment grid: the moments from
     ``spread_moments_kernel``, then the plain overlap-add (as the JAX
     package's ``spread_col_pallas`` leaves the fold to XLA)."""
     return _windows_to_grid(
-        spread_moments_kernel(f_cells, spec, params, factors), spec, params)
+        spread_moments_kernel(f_cells, spec, params, nodes, tilt), spec,
+        params)

@@ -29,14 +29,16 @@ Spans (parent: children):
     prepare: prepare.bin, prepare.windows, prepare.classes,
              prepare.pair_blocks, prepare.pair_coeffs, prepare.ff_factors,
              halo.exchange
-    far_field: far_field.spread, far_field.fft, far_field.ifft,
-               far_field.contract
+    far_field: far_field.spread, far_field.fft, far_field.green,
+               far_field.ifft, far_field.contract
     lanczos: near_field.matvec, sync.lanczos, lanczos.eigh
 
 ``sync.<site>`` is a host read of device data (the host waits for the
 device there), each counted as ``read.<site>``.  Counters:
 ``launch.<kernel wrapper>`` (a launch of a hand-written kernel),
-``read.<site>``, ``lanczos.iterations``, ``lanczos.eigh``,
+``read.<site>``, ``near_field.rhs`` (the right-hand sides of each
+``build_mv``: 1 in an athermal or a force-free step, 2 in a thermal banded
+step with forces), ``lanczos.iterations``, ``lanczos.eigh``,
 ``overflow.<OVF_* name>`` (one per rewind for each flag set),
 ``kernels.build`` and ``kernels.reuse`` (the kernel library compiled or
 found).

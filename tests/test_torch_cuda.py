@@ -292,6 +292,75 @@ def test_build_at_empty_full_and_ragged_columns(cuda, dtype):
             bdn.matvec_banded(blocks, *args, rhs, p.self_mobility), u)
 
 
+def _rcut_edge_positions(n, L, rcut, seed, pairs=80):
+    """Uniform positions whose first ``pairs`` pairs straddle a periodic
+    face at a distance within a few float32 ulps of rcut."""
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
+    h = L / 2
+    for k in range(pairs):
+        d = rng.normal(size=3)
+        a = rng.uniform(-h, h, 3)
+        a[k % 3] = (h - rng.uniform(0, 1)) * (1 if k % 2 else -1)
+        b = a + rcut * (1 + rng.integers(-6, 7) * 2.0 ** -24) * d \
+            / np.linalg.norm(d)
+        pos[2 * k], pos[2 * k + 1] = a, (b + h) % L - h
+    return pos
+
+
+def _split_edge_pairs(args):
+    """Occupied window pairs that the window's shifted z (the matvec's
+    geometry) and the minimum image of the z separation (the build's) put
+    on opposite sides of rcut^2."""
+    bins, tilt, bs, _, L, rcut, _, j0, nv, zsh = args
+    cut2 = np.float32(float(rcut) ** 2)
+    C, R = bs.bins.n_cells_total, bs.rows
+    Lz = float(np.float32(L[2]))
+    split = 0
+    for h in range(bdn.N_HALF):
+        dx, dy, wdz, mi, mj, same, nbr, slot = bdn.window_geometry(
+            bins, tilt, bs, L, j0, nv, zsh, h)
+        dz = bins.pz.reshape(C, -1, R, 1) - bins.pz[nbr[:, None, None],
+                                                    slot][:, :, None, :]
+        dz = dz - Lz * torch.round(dz / Lz)
+        occupied = (mi * mj > 0) & ~same
+        xy = dx * dx + dy * dy
+        split += int((occupied & ((xy + wdz * wdz < cut2)
+                                  != (xy + dz * dz < cut2))).sum())
+    return split
+
+
+@pytest.mark.parametrize("tilt", [0.0, 0.2])
+def test_banded_kernels_decide_rcut_edge_pairs_as_the_plain_version(cuda,
+                                                                   tilt):
+    """80 pairs across the periodic faces within float32 rounding of rcut
+    (N = 5300, L = 40, float32 A), some of which the window's shifted z
+    and the minimum image of the z separation put on opposite sides of
+    rcut: the build kernel takes the minimum image, so its A is bitwise the
+    plain build's and build_mv's u is within 1e-5 of the 9-offset
+    matvec_banded_reference's (a pair decided otherwise moves u by
+    ~1e-3); the matvec on that A is bitwise build_mv's."""
+    cfg, _, box = _setup(5300, 40.0, tilt, block_dtype="float32")
+    p, bs = cfg.params, cfg.band_spec
+    pos = torch.as_tensor(_rcut_edge_positions(5300, 40.0, p.ewald_cut, 5),
+                          device=cuda)
+    bins = bin_columns(pos, box, bs.bins)
+    j0, nv, ovf, zsh = bdn.compute_windows(bins, bs, box, p.ewald_cut)
+    assert not bool(ovf)
+    args = (bins, tilt, bs, cfg.cheb, p.L, p.ewald_cut, p.ewald_dr, j0, nv,
+            zsh)
+    assert _split_edge_pairs(args) > 0
+    A = bdn.build_banded_blocks(*args)
+    assert torch.equal(A, bdn.build_banded_blocks_reference(*args))
+    f = vec_to_cells(bins, bs.bins, torch.randn(pos.shape, device=cuda))
+    ref = bdn.matvec_banded_reference(*args[:9], f, p.self_mobility)
+    blocks, u = bdn.build_mv_banded(*args, f, p.self_mobility)
+    assert torch.equal(blocks, A)
+    assert _rel(u, ref) < 1e-5
+    assert torch.equal(bdn.matvec_banded(blocks, *args, f, p.self_mobility),
+                       u)
+
+
 @pytest.mark.parametrize("nrhs,window,rows,cap,Lz", [
     (1, 128, 32, 13408, 400.0), (2, 256, 32, 5760, 400.0),
     (2, 64, 16, 5360, 1600.0)])
@@ -431,25 +500,93 @@ def test_step_on_card_matches_cpu_step(cuda):
     assert _rel_max(ig["velocities"].cpu(), ic["velocities"]) < 1e-4
 
 
-@pytest.mark.parametrize("dtype,bound", [("float32", 1e-5),
-                                         ("bfloat16", 1e-4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("n,L,tilt", [(5300, 40.0, 0.25),
                                       (2048, 26.71378026056561, 0.0)])
-def test_spread_kernel_matches_plain_version(cuda, dtype, bound, n, L, tilt):
-    """The moments and the folded grid; X is rounded at the same point in
-    both, so the bf16 bound covers only the order of the f32 sums."""
+def test_spread_kernel_matches_plain_version(cuda, dtype, n, L, tilt):
+    """The moments and the folded grid at N = 5300 in L = 40 and at the
+    oracle's shapes (NN = 729, cap 312, Nz = 27), with the contract's
+    factors in either dtype: the spread computes float32 factors of the
+    slots' node-space coordinates either way, held to the plain version's
+    at 1e-5; reruns bitwise, one launch a call."""
     cfg, pos, box = _setup(n, L, tilt)
     p = cfg.params
     spec = cfg.colff_spec._replace(weight_dtype=dtype)
     bins, f = bin_particles(pos, box, spec.bins,
                             values=torch.randn(pos.shape, device=cuda))
-    fac = cff.build_col_factors(bins, box, spec, p)
-    got = cff.spread_moments_kernel(f, spec, p, fac)
-    want = cff.spread_moments(f, spec, p, fac)
-    assert _rel_max(got, want) < bound
-    assert torch.equal(cff.spread_moments_kernel(f, spec, p, fac), got)
-    assert _rel_max(cff.spread_col_kernel(f, spec, p, fac),
-                    cff.spread_col(f, spec, p, fac)) < bound
+    nodes = cff.spread_nodes(bins, box, p)
+    before = trace.counters().get("launch.spread_moments_kernel", 0)
+    got = cff.spread_moments_kernel(f, spec, p, nodes, tilt)
+    assert trace.counters()["launch.spread_moments_kernel"] == before + 1
+    want = cff.spread_moments(f, spec, p, nodes, tilt)
+    assert _rel_max(got, want) < 1e-5
+    assert torch.equal(cff.spread_moments_kernel(f, spec, p, nodes, tilt),
+                       got)
+    assert _rel_max(cff.spread_col_kernel(f, spec, p, nodes, tilt),
+                    cff.spread_col(f, spec, p, nodes, tilt)) < 1e-5
+
+
+@pytest.mark.parametrize("n,L,tilt", [(5300, 40.0, 0.25),
+                                      (2048, 26.71378026056561, 0.0)])
+def test_reach_spread_kernel_matches_plain_version(cuda, n, L, tilt):
+    """What a step spreads forces with: the engine's spread on a prepared
+    step (the contract's factors in the config's dtype) launches the kernel
+    once and matches the plain spread of the slots' float32 factors at
+    1e-5."""
+    params = make_params(xi=0.5, error=1e-3, L=L)
+    cfg = pi.make_config(params, n, engine="banded", has_forces=True,
+                         device="cuda")
+    rng = np.random.default_rng(1)
+    pos = torch.as_tensor(
+        rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32),
+        device="cuda")
+    forces = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32),
+                             device="cuda")
+    box = make_box(L, tilt)
+    eng = pi.engine_of(cfg)
+    ctx, _ = eng.prepare(pos, box, forces)
+    before = trace.counters().get("launch.spread_moments_kernel", 0)
+    got = eng.spread(ctx, box)
+    assert trace.counters()["launch.spread_moments_kernel"] == before + 1
+    want = cff.spread_col(ctx.ff_f, cfg.colff_spec, params,
+                          cff.spread_nodes(ctx.ff_bins, box, params), tilt)
+    assert _rel_max(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("cap", [1, 15, 300])
+@pytest.mark.parametrize("ncx,ncy,sx,sy,nz", [(3, 4, 3, 2, 20),
+                                              (3, 3, 5, 4, 24),
+                                              (3, 3, 9, 9, 12),
+                                              (3, 3, 2, 2, 100)])
+def test_reach_spread_kernel_at_ragged_shapes(cuda, cap, ncx, ncy, sx, sy,
+                                              nz):
+    """The spread kernel on hand-built slots (uniform in their columns, a
+    third of them empty, tilt 0.2) at 54, 180 and 729 window nodes (z
+    chunks of 32, 16 and 4), z columns shorter than, near and far past
+    the Gaussian's reach, and slot counts of one, a few and past a block's
+    threads: held to the plain version at 1e-5, reruns bitwise."""
+    L = (ncx * sx * 0.9, ncy * sy * 1.1, nz * 0.95)
+    params = SimpleNamespace(Nx=ncx * sx, Ny=ncy * sy, Nz=nz, L=L,
+                             spread_expfac=1.2, spread_prefac=0.37,
+                             quadW=0.81)
+    spec = cff.ColFfSpec(bins=BinSpec(n_cells=(ncx, ncy, 1), cap=cap),
+                         s=(sx, sy), weight_dtype="bfloat16")
+    C = ncx * ncy
+    rng = np.random.default_rng(cap + nz)
+    col = np.arange(C)
+    nodes = np.stack([
+        ((col // ncy)[:, None] + rng.uniform(0, 1, (C, cap))) * sx,
+        ((col % ncy)[:, None] + rng.uniform(0, 1, (C, cap))) * sy,
+        rng.uniform(0, nz, (C, cap)),
+        (rng.uniform(0, 1, (C, cap)) < 0.67).astype(np.float64)])
+    nodes = torch.as_tensor(nodes.astype(np.float32), device=cuda)
+    f = torch.as_tensor(rng.normal(size=(3, C, cap)).astype(np.float32),
+                        device=cuda) * nodes[3]
+    got = cff.spread_moments_kernel(f, spec, params, nodes, 0.2)
+    assert _rel_max(got, cff.spread_moments(f, spec, params, nodes, 0.2)
+                    ) < 1e-5
+    assert torch.equal(cff.spread_moments_kernel(f, spec, params, nodes, 0.2),
+                       got)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -463,17 +600,19 @@ def test_far_field_kernels_at_ragged_shapes(cuda, dtype, cap, ncx, ncy, sx,
     """Spread and contract on hand-built operands: 3 x 4 columns of
     (sx, sy) = (3, 2) nodes (NN = 54, Nz = 20); 3 x 3 columns of (5, 4)
     nodes (NN = 180, Nz = 24: the contract streams wxy instead of keeping
-    it resident, the spread has a ragged fourth row tile); Nz = 100 (two z
-    chunks in the contract, two column tiles in the spread) and Nz = 300
-    (the spread's column tiles start inside a component), at slot counts
-    at and around one 16-deep product step and at the main path's 248
-    (only 16 and 248 take the 16-byte staging).  Held to the plain
-    versions at the kernel bounds (spread 1e-5 / 1e-4, contract 1e-5 /
-    5e-3), reruns bitwise equal.  The grid is positive, so the bf16
-    contract's H rounding (plain version only) cannot be magnified by
-    cancellation."""
-    params = SimpleNamespace(Nx=ncx * sx, Ny=ncy * sy, Nz=nz,
-                             spread_prefac=0.37, quadW=0.81)
+    it resident); Nz = 100 (two z chunks in the contract) and Nz = 300, at
+    slot counts at and around one 16-deep product step and at the main
+    path's 248 (only 16 and 248 take the contract's 16-byte staging).  The
+    contract's factors are in ``dtype``; the spread takes the slots'
+    node-space coordinates (uniform in their columns, a third of the slots
+    empty, tilt 0.2) and computes float32 factors whatever ``dtype`` is.
+    Held to the plain versions (spread 1e-5, contract 1e-5 / 5e-3), reruns
+    bitwise equal.  The grid is positive, so the bf16 contract's H rounding
+    (plain version only) cannot be magnified by cancellation."""
+    L = (ncx * sx * 0.9, ncy * sy * 1.1, nz * 0.95)
+    params = SimpleNamespace(Nx=ncx * sx, Ny=ncy * sy, Nz=nz, L=L,
+                             spread_expfac=1.2, spread_prefac=0.37,
+                             quadW=0.81)
     spec = cff.ColFfSpec(bins=BinSpec(n_cells=(ncx, ncy, 1), cap=cap),
                          s=(sx, sy), weight_dtype=dtype)
     C, nn = ncx * ncy, 9 * sx * sy
@@ -485,12 +624,20 @@ def test_far_field_kernels_at_ragged_shapes(cuda, dtype, cap, ncx, ncy, sx,
 
     fac = cff.ColFactors(wxy=dev(rng.uniform(0, 1, (C, nn, cap)), wdt),
                          wz=dev(rng.uniform(0, 1, (C, nz, cap)), wdt))
-    f = dev(rng.normal(size=(3, C, cap)))
+    col = np.arange(C)
+    nodes = dev(np.stack([
+        ((col // ncy)[:, None] + rng.uniform(0, 1, (C, cap))) * sx,
+        ((col % ncy)[:, None] + rng.uniform(0, 1, (C, cap))) * sy,
+        rng.uniform(0, nz, (C, cap)),
+        (rng.uniform(0, 1, (C, cap)) < 0.67).astype(np.float64)]))
+    f = dev(rng.normal(size=(3, C, cap))) * nodes[3]
     grid = dev(rng.uniform(0, 1, (3, params.Nx, params.Ny, nz)))
-    s_bound, c_bound = (1e-5, 1e-5) if dtype == "float32" else (1e-4, 5e-3)
-    got = cff.spread_moments_kernel(f, spec, params, fac)
-    assert _rel_max(got, cff.spread_moments(f, spec, params, fac)) < s_bound
-    assert torch.equal(cff.spread_moments_kernel(f, spec, params, fac), got)
+    c_bound = 1e-5 if dtype == "float32" else 5e-3
+    got = cff.spread_moments_kernel(f, spec, params, nodes, 0.2)
+    assert _rel_max(got, cff.spread_moments(f, spec, params, nodes, 0.2)
+                    ) < 1e-5
+    assert torch.equal(cff.spread_moments_kernel(f, spec, params, nodes, 0.2),
+                       got)
     got = cff.contract_col_kernel(grid, spec, params, fac)
     assert _rel_max(got, cff.contract_col(grid, spec, params, fac)) < c_bound
     assert torch.equal(cff.contract_col_kernel(grid, spec, params, fac), got)

@@ -76,7 +76,7 @@ def _configs(thermal=True, seed=5):
 
 def _far_operands(jcfg, tcfg, tilt, dtype, seed=7):
     """Binned far-field slots, factors in ``dtype`` and slot forces of both
-    packages."""
+    packages, and the port's node-space coordinates of the slots."""
     jspec = jcfg.colff_spec._replace(weight_dtype=dtype)
     tspec = tcfg.colff_spec._replace(weight_dtype=dtype)
     pos, forces = _positions(seed), _forces(seed + 1)
@@ -88,35 +88,67 @@ def _far_operands(jcfg, tcfg, tilt, dtype, seed=7):
     np.testing.assert_array_equal(tfc.numpy(), np.asarray(jfc))
     jfac = jf.build_col_factors(jbins, jbox, jspec, jcfg.params)
     tfac = pf.build_col_factors(tbins, tbox, tspec, tcfg.params)
-    return (jspec, jbins, jbox, jfc, jfac), (tspec, tfc, tfac)
+    tnodes = pf.spread_nodes(tbins, tbox, tcfg.params)
+    return (jspec, jbins, jbox, jfc, jfac), (tspec, tfc, tfac, tnodes)
+
+
+def _jax_spread(jcfg, tilt, dtype):
+    """The JAX package's XLA spread_col with factors in ``dtype``."""
+    (jspec, jbins, jbox, jfc, jfac), _ = _far_operands(jcfg, _configs()[1],
+                                                       tilt, dtype)
+    return jf.spread_col(jbins, jfc, jbox, jspec, jcfg.params, jfac)
 
 
 @pytest.mark.parametrize("tilt", [0.0, 0.25])
 @pytest.mark.parametrize("dtype,bound", [("float32", 1e-5),
                                          ("bfloat16", 1e-4)])
 def test_spread_col_matches_jax(tilt, dtype, bound):
-    """The plain spread (X rounded once to the weight dtype, f32 sums, the
-    offset-major overlap-add) against the JAX package's XLA spread_col;
-    the bf16 bound covers only the order of the f32 sums."""
+    """The plain spread (float32 factors of the slots' node-space
+    coordinates, f32 sums, the offset-major overlap-add) with the
+    contract's factors in ``dtype`` against the JAX package's XLA spread_col
+    at float32 factors: the port's spread does not round to the weight
+    dtype."""
     jcfg, tcfg = _configs()
-    (jspec, jbins, jbox, jfc, jfac), (tspec, tfc, tfac) = _far_operands(
-        jcfg, tcfg, tilt, dtype)
-    gj = jf.spread_col(jbins, jfc, jbox, jspec, jcfg.params, jfac)
-    gt = pf.spread_col_kernel(tfc, tspec, tcfg.params, tfac)
+    _, (tspec, tfc, _, tnodes) = _far_operands(jcfg, tcfg, tilt, dtype)
+    gj = _jax_spread(jcfg, tilt, "float32")
+    gt = pf.spread_col_kernel(tfc, tspec, tcfg.params, tnodes, tilt)
     assert gt.shape == (3, tcfg.params.Nx, tcfg.params.Ny, tcfg.params.Nz)
     assert _rel(gt.numpy(), gj) < bound
 
 
 @pytest.mark.parametrize("tilt", [0.0, 0.25])
-def test_spread_is_the_transpose_of_the_contract(tilt):
-    """<spread(f), g> = <f, contract(g)> / quadW at float32 factors: the
-    overlap-add rolls are the transposes of the window gathers."""
+def test_spread_of_forces_keeps_float32_moments(tilt):
+    """With bfloat16 factors for the contract, the spread of forces is the
+    JAX package's float32 spread (within 1e-5), where the JAX package's own
+    bfloat16 spread, one bfloat16 product, is off by more than 1e-3; the
+    contract's factors are the float32 ones rounded once."""
     jcfg, tcfg = _configs()
-    _, (tspec, tfc, tfac) = _far_operands(jcfg, tcfg, tilt, "float32")
+    _, (spec, tfc, fac, nodes) = _far_operands(jcfg, tcfg, tilt, "bfloat16")
+    _, (spec32, _, fac32, _) = _far_operands(jcfg, tcfg, tilt, "float32")
     p = tcfg.params
+    gj = _jax_spread(jcfg, tilt, "float32")
+    assert _rel(pf.spread_col_kernel(tfc, spec, p, nodes, tilt).numpy(),
+                gj) < 1e-5
+    assert _rel(np.asarray(_jax_spread(jcfg, tilt, "bfloat16")), gj) > 1e-3
+    assert torch.equal(fac.wxy, fac32.wxy.to(torch.bfloat16))
+    assert torch.equal(fac.wz, fac32.wz.to(torch.bfloat16))
+    assert nodes.shape == (4, *fac.wz[:, 0].shape)
+
+
+@pytest.mark.parametrize("tilt", [0.0, 0.25])
+def test_spread_is_the_transpose_of_the_contract(tilt):
+    """<spread(f), g> = <f, contract(g)> / quadW at the spread's float32
+    factors (centred node offsets) in both: the overlap-add rolls are the
+    transposes of the window gathers."""
+    jcfg, tcfg = _configs()
+    _, (tspec, tfc, _, tnodes) = _far_operands(jcfg, tcfg, tilt, "float32")
+    p = tcfg.params
+    tfac = pf.ColFactors(*pf._factors_f32(tnodes[:3], tnodes[3], tilt, tspec,
+                                          p, centred=True))
     g = torch.as_tensor(np.random.default_rng(9).normal(
         size=(3, p.Nx, p.Ny, p.Nz)).astype(np.float32))
-    lhs = torch.sum(pf.spread_col(tfc, tspec, p, tfac).double() * g.double())
+    lhs = torch.sum(pf.spread_col(tfc, tspec, p, tnodes, tilt).double()
+                    * g.double())
     rhs = torch.sum(tfc.double() * pf.contract_col(g, tspec, p, tfac).double())
     assert abs(float(lhs - rhs * (1.0 / p.quadW))) < 1e-5 * abs(float(lhs))
 
@@ -219,16 +251,31 @@ def test_mobility_matches_the_f64_oracle():
     assert _rel(u.numpy(), d["u_ref"]) < 5e-3
 
 
-@pytest.mark.parametrize("tilt", [0.0, 0.3])
-def test_plain_build_applied_matches_plain_matvec(tilt):
-    """build_banded_blocks_reference's A (float32), applied forward and
-    transposed over the 5 stored offsets with the kernels' window geometry,
-    against the 9-offset matvec_banded_reference: 2e-6 of max |u|."""
-    _, tcfg = _configs()
+def _rcut_edge_positions(seed, pairs=80):
+    """Uniform positions whose first ``pairs`` pairs straddle a periodic
+    face at a distance within a few float32 ulps of rcut."""
+    rng = np.random.default_rng(seed)
+    pos = _positions(seed)
+    rcut = P.make_params(xi=0.5, error=1e-3, L=L).ewald_cut
+    h = L / 2
+    for k in range(pairs):
+        d = rng.normal(size=3)
+        a = rng.uniform(-h, h, 3)
+        a[k % 3] = (h - rng.uniform(0, 1)) * (1 if k % 2 else -1)
+        b = a + rcut * (1 + rng.integers(-6, 7) * 2.0 ** -24) * d \
+            / np.linalg.norm(d)
+        pos[2 * k], pos[2 * k + 1] = a, (b + h) % L - h
+    return pos
+
+
+def _plain_build_applied(tcfg, pos, tilt):
+    """The float32 plain build's A applied forward and transposed over the
+    5 stored offsets with the kernels' window geometry, the 9-offset
+    matvec_banded_reference, and both A."""
     p = tcfg.params
     bs = tcfg.band_spec._replace(block_dtype="float32")
     box = P.make_box(L, tilt)
-    bins = pc.bin_columns(torch.as_tensor(_positions(15)), box, bs.bins)
+    bins = pc.bin_columns(torch.as_tensor(pos), box, bs.bins)
     j0, nv, ovf, zsh = pb.compute_windows(bins, bs, box, p.ewald_cut)
     assert not bool(ovf)
     f = pc.vec_to_cells(bins, bs.bins, torch.as_tensor(_forces(16)))
@@ -257,10 +304,33 @@ def test_plain_build_applied_matches_plain_matvec(tilt):
             u[k].view(-1).index_add_(0, flat.reshape(-1),
                                      (F1 * fi[k] + gi * d[k]).reshape(-1))
     ref = pb.matvec_banded_reference(*args[:9], f, p.self_mobility)
-    assert float((u - ref).abs().max() / ref.abs().max()) < 2e-6
     Ab = pb.build_banded_blocks(*args[:2], bs._replace(
         block_dtype="bfloat16"), *args[3:])
+    return u, ref, A, Ab
+
+
+@pytest.mark.parametrize("tilt", [0.0, 0.3])
+def test_plain_build_applied_matches_plain_matvec(tilt):
+    """build_banded_blocks_reference's A (float32), applied forward and
+    transposed over the 5 stored offsets with the kernels' window geometry,
+    against the 9-offset matvec_banded_reference: 2e-6 of max |u|."""
+    _, tcfg = _configs()
+    u, ref, A, Ab = _plain_build_applied(tcfg, _positions(15), tilt)
+    assert float((u - ref).abs().max() / ref.abs().max()) < 2e-6
     assert Ab.dtype == torch.bfloat16 and torch.equal(Ab, A.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("tilt", [0.0, 0.3])
+def test_plain_build_decides_rcut_edge_pairs_as_the_plain_matvec(tilt):
+    """As above, with 80 pairs across the periodic faces within float32
+    rounding of rcut: the plain build takes each pair's d^2 from the
+    minimum image of its separation, as the 9-offset version does, so both
+    include the same pairs (d^2 from the window's shifted coordinates
+    decides some of them otherwise and misses by 1.4e-3 to 2.1e-3)."""
+    _, tcfg = _configs()
+    u, ref, _, _ = _plain_build_applied(tcfg, _rcut_edge_positions(17),
+                                        tilt)
+    assert float((u - ref).abs().max() / ref.abs().max()) < 2e-6
 
 
 def test_simulation_with_force_fn_runs_saves_and_restores(tmp_path):

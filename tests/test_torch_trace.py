@@ -28,7 +28,7 @@ LAYERS = {"step", "prepare", "prepare.bin", "prepare.ff_factors",
           "near_field.matvec", "sync.lanczos", "update"}
 NAMES = LAYERS | {"run.chunk", "sync.overflow", "run.rewind",
                   "prepare.windows", "prepare.classes", "prepare.pair_blocks",
-                  "prepare.pair_coeffs", "far_field.spread",
+                  "prepare.pair_coeffs", "far_field.spread", "far_field.green",
                   "sync.tap_width", "sync.positions", "halo.exchange",
                   "lanczos.eigh"}
 
@@ -141,6 +141,52 @@ def test_blocked_and_gather_steps_enter_the_same_layers(engine, n, box,
     assert rec.steps == 1
 
 
+@pytest.mark.parametrize("thermal,rhs", [(False, 1), (True, 2)])
+def test_build_mv_right_hand_sides_counted(thermal, rhs):
+    """A banded step with forces: the athermal one builds A against the
+    forces alone (one right-hand side), the thermal one against the forces
+    and the first Lanczos vector (two); each calls build_mv once."""
+    cfg = _config("banded", thermal=thermal)
+    assert cfg.engine == "banded" and cfg.has_forces
+    st = pi.make_state(_positions(N, L), 5, 0.0, "cpu")
+    forces = torch.tensor([0.0, 0.0, -1.0]).expand(N, 3)
+    before = trace.counters().get("near_field.rhs", 0)
+    with trace.recording() as rec:
+        pi.step(cfg, st, forces, 1.0 if thermal else 0.0, 1e-3, 0.0)
+    assert rec.counts["near_field.rhs"] == rhs
+    assert trace.counters()["near_field.rhs"] == before + rhs
+    assert [s[0] for s in rec.spans].count("near_field.build_mv") == 1
+    assert ("lanczos" in {s[0] for s in rec.spans}) == thermal
+
+
+def test_green_has_a_span_of_its_own(monkeypatch):
+    """An athermal banded step with forces: the far field's spans in
+    order, and the Green multiply runs inside ``far_field.green``, outside
+    ``far_field.fft``, whose interval does not overlap it."""
+    open_at_green = []
+    real = pi.apply_green
+
+    def green(*a, **k):
+        open_at_green.append(list(trace._state.stack))
+        return real(*a, **k)
+
+    monkeypatch.setattr(pi, "apply_green", green)
+    cfg = _config("banded", thermal=False)
+    st = pi.make_state(_positions(N, L), 5, 0.0, "cpu")
+    with trace.recording() as rec:
+        pi.step(cfg, st, torch.ones(N, 3), 0.0, 1e-3, 0.0)
+    assert open_at_green == [["step", "far_field", "far_field.green"]]
+    under = _children(rec, "far_field")
+    assert [s[0] for s in under] == [
+        "far_field.spread", "far_field.fft", "far_field.green",
+        "far_field.ifft", "far_field.contract"]
+    (fft,), (g,) = ([s for s in under if s[0] == name]
+                    for name in ("far_field.fft", "far_field.green"))
+    assert fft[3] <= g[2]
+    assert {s[0] for s in _children(rec, "step")} == {
+        "prepare", "far_field", "near_field.build_mv", "update"}
+
+
 def test_halo_engine_enters_the_same_layers():
     """The halo engine's U = M F on 2 CPU slabs: the layers of a mobility
     call, each slab's exchange and windows under ``prepare``."""
@@ -154,9 +200,9 @@ def test_halo_engine_enters_the_same_layers():
     names = [s[0] for s in rec.spans]
     assert {s[0] for s in _children(rec, "step")} == {
         "prepare", "near_field.build_mv", "far_field"}
-    assert {s[0] for s in _children(rec, "far_field")} >= {
-        "far_field.spread", "far_field.fft", "far_field.ifft",
-        "far_field.contract"}
+    assert {s[0] for s in _children(rec, "far_field")} == {
+        "far_field.spread", "far_field.fft", "far_field.green",
+        "far_field.ifft", "far_field.contract"}
     prep = [s[0] for s in _children(rec, "prepare")]
     assert prep.count("halo.exchange") == prep.count("prepare.windows") == 2
     assert names.count("step") == rec.steps == 1
