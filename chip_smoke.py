@@ -15,7 +15,10 @@ Phases (each failure makes the script exit non-zero without the result line):
             and far-field factors) against the float64 direct-Ewald u_ref:
             relative 2-norm <= 5e-3;
   [blocked-small]  the blocked engine on the card against the CPU (N=1080,
-            L=24, tilts 0 and 0.3, same uniforms): the thermal step without
+            L=24, tilts 0 and 0.3, same uniforms): matvec_cells
+            (csrc/blocked.cu) against matvec_cells_reference on the card's
+            bf16 and f32 blocks (<= 2e-6, one launch a call, a rerun
+            bitwise), then the thermal step without
             and with forces, the athermal step and mobility(), at error 1e-3
             (bf16 blocks) <= 5e-3 and at 1e-4 (f32 blocks, where banded
             falls back to blocked) <= 1e-4, and at 1e-3 with colff_spec=None
@@ -89,9 +92,10 @@ Phases (each failure makes the script exit non-zero without the result line):
             the default, blocked engine (asserted), a warm-up and 10 timed
             steps; ms/step, particle-steps/s, the m histogram, the retries,
             the pair-block bytes, the peak device memory and every kernel's
-            launches (the fill, build_pair_blocks, the contract and, with
-            forces, the spread > 0; the banded kernels 0; on the banded and
-            gather paths build_pair_blocks 0);
+            launches (the fill, build_pair_blocks, matvec_cells (m a
+            step, 1 + m with forces), the contract and, with forces, the
+            spread > 0; the banded kernels 0; on the banded, gather and halo
+            paths build_pair_blocks and matvec_cells 0);
   [blocked-mobility]  Simulation.mobility_matvec at the blocked state;
   [gather], [gather-forces]  the same Simulation with engine="gather", a
             warm-up and 10 timed steps: ms/step, particle-steps/s, the m
@@ -173,9 +177,14 @@ Phases (each failure makes the script exit non-zero without the result line):
             bit build_pair_blocks_reference's at tilts 0 and 0.3, a rerun
             bitwise, one launch a call, the kernel alone (CUDA-graph
             replay), its wrapper and its plain version (CUDA events) at tilt
-            0.3 beside its bound by bytes; then build_pair_blocks and one
-            matvec_cells (plain PyTorch) by CUDA events, with the bytes each
-            must move and their kernel launches per call by torch.profiler;
+            0.3 beside its bound by bytes; matvec_cells on those blocks
+            against its plain version (<= 2e-6, a rerun bitwise), alone
+            (graph replay) and through its wrapper beside its bounds by
+            bytes (the live slot pairs, every stored byte), its plain
+            version and torch.bmm on pre-upcast operands (library_ms);
+            then build_pair_blocks and matvec_cells by CUDA events, with
+            the bytes each must move and their kernel launches per call by
+            torch.profiler;
             the gather step's parts
             (the neighbor build, the pair coefficients, one matvec, the
             taps, the tap spread and contract) by CUDA events beside the
@@ -566,15 +575,42 @@ def phase_oracle(ph):
         ph.failed.append("oracle mobility overflowed or is not finite")
 
 
+def _check_matvec_kernel(ph, label, blocks, spec, bins, self_mobility):
+    """matvec_cells (csrc/blocked.cu) against matvec_cells_reference on the
+    same CUDA tensors: max |diff| / max |plain| <= 2e-6 (sums in another
+    order), one launch a call, a rerun bitwise."""
+    import torch
+
+    from pse_tpu_torch import trace
+    from pse_tpu_torch.ops import blocked_nearfield as bnf
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(17)
+    f = torch.randn((3,) + tuple(bins.mask.shape), generator=g,
+                    device="cuda") * bins.mask
+    n0 = trace.counters().get("launch.matvec_cells", 0)
+    u = bnf.matvec_cells(blocks, spec, bins, f, self_mobility)
+    if trace.counters().get("launch.matvec_cells", 0) != n0 + 1:
+        ph.failed.append(f"{label}: matvec_cells not one launch")
+    want = bnf.matvec_cells_reference(blocks, spec, bins, f, self_mobility)
+    ph.check(f"{label}: matvec_cells kernel vs plain (max rel)",
+             rel_max(u, want)[0], 2e-6)
+    _check_rerun(ph, f"{label} matvec_cells", u, lambda: bnf.matvec_cells(
+        blocks, spec, bins, f, self_mobility))
+
+
 def phase_blocked_small(ph):
     """The blocked engine on the card vs on the CPU at N=1080, L=24: the
+    matvec kernel against its plain version on the card's blocks, then the
     thermal step without and with forces, the athermal step and mobility(),
     same uniforms."""
     import dataclasses
 
     import torch
 
-    from pse_tpu_torch import integrator, make_params
+    from pse_tpu_torch import integrator, make_box, make_params
+    from pse_tpu_torch.cellbins import bin_particles
+    from pse_tpu_torch.ops import blocked_nearfield as bnf
 
     print("[blocked-small] the blocked engine on the card vs the CPU plain "
           "path (N=1080, L=24)")
@@ -582,6 +618,18 @@ def phase_blocked_small(ph):
     n, L = 1080, 24.0
     pos = rng.uniform(-L / 2, L / 2, size=(n, 3)).astype(np.float32)
     forces = torch.as_tensor(rng.normal(size=(n, 3)).astype(np.float32))
+    for error in (1e-3, 1e-4):
+        cfg = integrator.make_config(make_params(xi=XI, error=error, L=L), n,
+                                     device="cuda")
+        spec, p = cfg.nf_spec, cfg.params
+        for tilt in (0.0, 0.3):
+            box = make_box(L, tilt)
+            bins = bin_particles(torch.as_tensor(pos, device="cuda"), box,
+                                 spec.bins)
+            blocks = bnf.build_pair_blocks(bins, box, spec, cfg.cheb,
+                                           p.ewald_cut, p.ewald_dr)
+            _check_matvec_kernel(ph, f"{spec.block_dtype} blocks tilt={tilt}",
+                                 blocks, spec, bins, p.self_mobility)
     for error, bound, far in ((1e-3, 5e-3, "column"), (1e-4, 1e-4, "column"),
                               (1e-3, 5e-3, "stored")):
         params = make_params(xi=XI, error=error, L=L)
@@ -942,15 +990,16 @@ def _sync_idle(sim, steps=3):
 
 def _step_wrappers(forces: bool, engine: str = "banded"):
     """The kernel wrappers a main-path step launches, by their launch
-    counters (on the blocked engine: the fills, the pair-block build, the
-    contract and, with forces, the spread; on the gather engine: the fill
-    of the neighbor list's cell binning)."""
+    counters (on the blocked engine: the fills, the pair-block build and
+    matvec, the contract and, with forces, the spread; on the gather
+    engine: the fill of the neighbor list's cell binning)."""
     if engine == "gather":
         return {"fill_cells": "launch.fill_cells"}
     w = {"fill_cells": "launch.fill_cells",
          "contract_col": "launch.contract_col_kernel"}
     if engine == "blocked":
-        w["build_pair_blocks"] = "launch.build_pair_blocks"
+        w.update(build_pair_blocks="launch.build_pair_blocks",
+                 matvec_cells="launch.matvec_cells")
     if engine == "banded":
         w.update(build_mv_banded="launch.build_mv_banded",
                  matvec_banded="launch.matvec_banded")
@@ -1140,7 +1189,8 @@ def phase_main(ph, forces: bool, engine: str = "banded",
     cfg = sim.config
     peak = (f"peak device memory {torch.cuda.max_memory_allocated() / 1e9:.3f}"
             " GB (torch.cuda.max_memory_allocated)")
-    unused = () if engine == "blocked" else ("build_pair_blocks",)
+    unused = () if engine == "blocked" else ("build_pair_blocks",
+                                             "matvec_cells")
     if engine != "banded":
         unused += ("build_mv_banded", "matvec_banded", "build_banded_blocks")
     if engine == "gather":
@@ -1149,6 +1199,15 @@ def phase_main(ph, forces: bool, engine: str = "banded",
         if launches[k]:
             ph.failed.append(f"{k} launched on the {label} path")
     if engine == "blocked":
+        # the matvec kernel 1 + m times a step with forces (build_mv, M F,
+        # m - 1 Lanczos iterations), m without
+        want_mv = sum((m + forces) * c for m, c in hist.items())
+        if retries == 0 and launches["matvec_cells"] != want_mv:
+            ph.failed.append(f"{label}: matvec_cells launched "
+                             f"{launches['matvec_cells']} times (expected "
+                             f"{want_mv})")
+        print(f"  per step: matvec_cells {launches['matvec_cells'] / timed:g}"
+              f" ({'1 + m' if forces else 'm'} = {want_mv / timed:g})")
         nf = cfg.nf_spec
         C, cap = nf.bins.n_cells_total, nf.bins.cap
         item = torch.empty((), dtype=getattr(torch, nf.block_dtype)
@@ -1214,8 +1273,12 @@ def phase_mobility(ph, sim, label="main-mobility"):
     expected = ["fill_cells", "contract_col", "spread_col"]
     if sim.config.engine == "banded":
         expected.append("build_mv_banded")
+    else:
+        expected.append("matvec_cells")
     u, launches = _counted(ph, label, expected,
                            lambda: sim.mobility_matvec(F))
+    if sim.config.engine == "banded" and launches["matvec_cells"]:
+        ph.failed.append(f"{label}: matvec_cells launched on banded")
     if u.shape != (N, 3) or not bool(torch.isfinite(u).all()):
         ph.failed.append(f"{label}: mobility_matvec not finite (N, 3)")
     # U.F = F.M.F > 0 for the SPD mobility
@@ -1305,7 +1368,8 @@ def phase_sedimentation(ph):
           "card, 20 steps")
     t0 = time.perf_counter()
     (sim, u), launches = _counted(
-        ph, "sedimentation", ("fill_cells", "contract_col", "spread_col"),
+        ph, "sedimentation", ("fill_cells", "contract_col", "spread_col",
+                              "matvec_cells"),
         lambda: sedimentation.main("cuda", 20))
     print(f"  {time.perf_counter() - t0:.2f} s, engine {sim.config.engine}, "
           f"{sim.metrics_summary()}")
@@ -2015,12 +2079,68 @@ def phase_packed_timing(ph, simc, results):
     torch.cuda.empty_cache()
 
 
+def _time_matvec(ph, blocks, nf, bins, f, self_mobility):
+    """[blocked-build]'s matvec: matvec_cells alone (CUDA-graph replay) and
+    through its wrapper (CUDA events) beside its two bounds by bytes (the
+    live slot pairs' coefficients, as portbench's yardstick counts them,
+    and every stored byte), the plain version, and torch.bmm on operands
+    upcast beforehand (the library yardstick: the plain version's forward
+    and transposed GEMVs without its upcast, gathers and sums); the kernel
+    against the plain version on the same blocks."""
+    import torch
+
+    from portbench.yardstick import live_slot_pairs
+    from pse_tpu_torch.ops import blocked_nearfield as bnf
+
+    noff, _, C, cap, _ = blocks.shape
+    n = int(bins.mask.sum())
+    vecs = 2 * 3 * n * 4                           # f read, u written
+    counts = (bins.mask != 0).sum(1).view(*nf.bins.n_cells)
+    live = live_slot_pairs(counts, nf.offsets) * 6 * blocks.element_size()
+    stored = blocks.numel() * blocks.element_size()
+
+    def matvec():
+        return bnf.matvec_cells(blocks, nf, bins, f, self_mobility)
+    _check_matvec_kernel(ph, "blocked-build", blocks, nf, bins,
+                         self_mobility)
+    alone = graph_ms(matvec, 10)
+    wrapper = cuda_ms(matvec, 20)
+    plain = cuda_ms(lambda: bnf.matvec_cells_reference(
+        blocks, nf, bins, f, self_mobility), 3)
+    a32 = blocks.float().view(noff * 6 * C, cap, cap)
+    rhs = f.permute(1, 2, 0)[None, None].expand(noff, 6, C, cap, 3).reshape(
+        noff * 6 * C, cap, 3)
+    first_t = int(tuple(nf.offsets[0]) == (0, 0, 0))
+    t0 = first_t * 6 * C
+
+    def library():
+        torch.bmm(a32, rhs)
+        torch.bmm(a32[t0:].transpose(1, 2), rhs[t0:])
+    lib = cuda_ms(library, 3)
+    del a32, rhs
+    torch.cuda.empty_cache()
+    live_ms = 1e3 * (live + vecs) / HBM_BYTES_PER_S
+    stored_ms = 1e3 * (stored + vecs) / HBM_BYTES_PER_S
+    print(f"  matvec_cells: kernel alone {alone:.4f} ms (CUDA-graph replay),"
+          f" wrapper {wrapper:.4f} ms (CUDA events); bounds by bytes: live "
+          f"pairs {live_ms:.4f} ms ({(live + vecs) / 1e9:.3f} GB: "
+          f"{100 * live_ms / alone:.1f} % of it alone), all stored "
+          f"{stored_ms:.4f} ms ({(stored + vecs) / 1e9:.3f} GB: "
+          f"{100 * stored_ms / alone:.1f} %); plain {plain:.3f} ms, "
+          f"library (torch.bmm on float32 blocks upcast beforehand, forward "
+          f"and transposed) {lib:.3f} ms")
+    return {"ms": wrapper, "bytes": live + vecs, "alone_ms": alone,
+            "bound_live_ms": live_ms, "bound_stored_ms": stored_ms,
+            "plain_ms": plain, "library_ms": lib}
+
+
 def phase_blocked_timing(ph, simb, results, launches_b):
     """The fill at the blocked near field's shape (tilt 0.3); [blocked-build]:
     build_pair_blocks at the [blocked-forces] state, bitwise its plain
     version at tilts 0 and 0.3, its kernel alone, wrapper and plain version
-    timed at 0.3 beside its bound by bytes; one matvec_cells by CUDA events;
-    the bytes each must move and the launches per call."""
+    timed at 0.3 beside its bound by bytes; matvec_cells on those blocks
+    (``_time_matvec``); the bytes each must move and the launches per
+    call."""
     import torch
 
     from pse_tpu_torch import cellbins as cb
@@ -2096,13 +2216,13 @@ def phase_blocked_timing(ph, simb, results, launches_b):
           f"{per_step:g} launches a step on [blocked-forces]")
     blocks = build()
     f = torch.randn((3, C, cap), device="cuda") * bins.mask
-    m_ms = cuda_ms(lambda: bnf.matvec_cells(blocks, nf, bins, f,
-                                            p.self_mobility), 5)
+    mv = _time_matvec(ph, blocks, nf, bins, f, p.self_mobility)
+
+    def matvec():
+        return bnf.matvec_cells(blocks, nf, bins, f, p.self_mobility)
     for name, ms, nbytes, fn in (
             ("build_pair_blocks", b_ms, slots + block_bytes, build),
-            ("matvec_cells", m_ms, block_bytes + 2 * 3 * C * cap * 4,
-             lambda: bnf.matvec_cells(blocks, nf, bins, f,
-                                      p.self_mobility))):
+            ("matvec_cells", mv["ms"], mv["bytes"], matvec)):
         bound = 1e3 * nbytes / HBM_BYTES_PER_S
         prof = device_profile(fn, reps=2)
         results.setdefault("blocked", {})[name] = {
@@ -2118,6 +2238,10 @@ def phase_blocked_timing(ph, simb, results, launches_b):
         alone_ms=alone, plain_ms=plain,
         launches_blocked=launches_b["build_pair_blocks"],
         launches_per_step=per_step)
+    results["blocked"]["matvec_cells"].update(
+        {k: v for k, v in mv.items() if k not in ("ms", "bytes")},
+        launches_blocked=launches_b["matvec_cells"],
+        launches_per_step=launches_b["matvec_cells"] / BLOCKED_TIMED)
     del blocks
     torch.cuda.empty_cache()
 
@@ -2329,6 +2453,9 @@ def _halo_steps(ph, label, cfg, pos, F, D, warm, timed, may_grow=False):
                            lambda: advance(timed))
     ms = 1e3 * (time.perf_counter() - t0) / timed
     peak = torch.cuda.max_memory_allocated()
+    for k in ("build_pair_blocks", "matvec_cells"):
+        if launches[k]:
+            ph.failed.append(f"{k} launched on the {label} path")
     state = cur[0]
     if int(state.nbr_overflow) or not bool(torch.isfinite(state.pos).all()):
         ph.failed.append(f"{label}: timed steps flag overflow "
@@ -2760,8 +2887,8 @@ def main() -> int:
         print(f"  {name}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f} ms, "
               f"bound {r['bound_ms']:.4f} ms by {r['bound_by']}), "
               f"launches {launches[name]}")
-    print("blocked near field (build_pair_blocks: csrc/blocked.cu; "
-          f"matvec_cells: plain PyTorch): {json.dumps(results['blocked'])}")
+    print("blocked near field (build_pair_blocks, matvec_cells: "
+          f"csrc/blocked.cu): {json.dumps(results['blocked'])}")
     print(f"gather engine (not kernels): {json.dumps(results['gather'])}")
     print(f"classes-run: {json.dumps(class_run)}")
     for name, n, ms, prof, a, peak in (

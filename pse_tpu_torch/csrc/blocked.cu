@@ -1,5 +1,6 @@
 // Blocked near field on the H100: the blocked engine's pair blocks, (noff,
-// 6, C, cap, cap) in the block dtype, in one launch.
+// 6, C, cap, cap) in the block dtype, in one launch; and their application,
+// u = M_real f, in two (cell_products, cell_sums, at the end of this file).
 //
 // Replaces no TPU kernel: the JAX package builds the blocks in plain XLA
 // (pse_tpu/ops/blocked_nearfield.py::build_pair_blocks), and its plain
@@ -303,5 +304,302 @@ extern "C" int pse_blocked_build(const float* px, const float* py,
                             : launch<__nv_bfloat16, 0>(b, noff, threads, stream))
              : (n_coef == 9 ? launch<float, 9>(b, noff, threads, stream)
                             : launch<float, 0>(b, noff, threads, stream));
+  return (int)e;
+}
+
+// ---------------------------------------------------------------------------
+// The matvec: u = M_real f in cell layout (3, C, cap) from the stored blocks.
+//
+// Replaces no TPU kernel: the JAX package applies the blocks in plain XLA
+// (pse_tpu/ops/blocked_nearfield.py::matvec_cells, einsum GEMVs), and its
+// plain PyTorch twin (blocked_nearfield.matvec_cells_reference) makes a
+// float32 copy of the bf16 blocks for each group of offsets (4.1 GB at
+// N = 100k) and runs torch.bmm on it forward and transposed, with ~50 small
+// gathers and sums an application: ~12.5 ms against a bound of well under
+// one.
+//
+// Semantics, per stored offset o (index oi) and cell c, with the six
+// components mapped as blocked_nearfield._COMP:
+//   u(c)     += A[o, ., c] f(c + o)                  (forward, every o)
+//   u(c + o) += A[o, ., c]^T f(c)                    (transposed, oi >= first_t:
+//                                                     (0,0,0) applies forward only)
+//   u(c)     += self f(c) mask(c)                    (the self term)
+// in float32 from the blocks as stored (bf16 or float32, converted in
+// registers; no TF32 or lower-precision sums), as the plain version's
+// float32 upcast.
+//
+// What bounds it on the H100: the bytes of the blocks it has to read.  The
+// build leaves every slot pair with a padded slot zero (above), so only the
+// rows i < n_c and the columns j < n_(c+o) of a block are live, n_c being one
+// past the last occupied slot of cell c.  At N = 100k (cells (9, 13, 13), cap
+// 112, 14 offsets, bf16) the live pairs are ~1.07 GB (0.32 ms at 3.35
+// TB/s) of the 3.2 GB stored; the arithmetic, 18 float32 FMAs a slot pair,
+// is far under it.  The design:
+//   * cell_products, one block per (cell, offset): the live counts of c and
+//     c + o from the masks (the neighbour cell from the grid, as the build
+//     finds it), then each live row once, up to n_(c+o) rounded up to a
+//     16-byte vector (8 bf16): a warp's lanes split a row's vectors, W lanes
+//     a row (W <= 32; wider rows go in chunks of 32 vectors), and each lane
+//     holds f(c + o) of its 8 columns and their transposed sums in registers
+//     over all its rows: both products from one streaming read (__ldcs) of
+//     each live 16 bytes, never a float32 copy in device memory;
+//   * the forward row sums reduce over a row's W lanes by shuffles, the
+//     transposed column sums over the block's rows in shared memory, each in
+//     a fixed order, into a partial buffer part (nparts, 3, C, cap): part[oi]
+//     the forward sums of offset oi for cell c, part[noff + oi - first_t] the
+//     transposed sums for cell c + o (each cell of each part has one writer);
+//   * cell_sums adds, per slot, the self term, the forward parts in offset
+//     order, then the transposed parts in offset order (live slots; zero
+//     beyond).  The partial buffer is ~30 MB at N = 100k, mostly in L2.
+//   * no float atomics: reruns are bitwise equal.
+// Its H100 time against that bound is in PERF.md.
+namespace {
+
+constexpr int MV_THREADS = 128;
+constexpr int MV_WARPS = MV_THREADS / 32;
+
+struct CellMv {
+  const void* a;         // (noff, 6, C, cap, cap) block dtype
+  const float* f;        // (3, C, cap)
+  const float* mask;     // (C, cap)
+  float* part;           // (noff + noff - first_t, 3, C, cap)
+  int* live;             // (C,) one past each cell's last occupied slot
+  int ncx, ncy, ncz, cap, noff, first_t;
+  int ox[MAX_OFFSETS], oy[MAX_OFFSETS], oz[MAX_OFFSETS];
+};
+
+// Eight stored values of one plane's row, loaded as stored (16 or 32
+// bytes), read back as float32.
+template <typename AT>
+struct Seg8;
+
+template <>
+struct Seg8<__nv_bfloat16> {
+  unsigned w[4];
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    const uint4 v = __ldcs(reinterpret_cast<const uint4*>(p));
+    w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+  }
+  __device__ __forceinline__ void zero() { w[0] = w[1] = w[2] = w[3] = 0u; }
+  __device__ __forceinline__ float operator[](int l) const {
+    const unsigned x = w[l >> 1];
+    return __uint_as_float((l & 1) ? (x & 0xffff0000u) : (x << 16));
+  }
+};
+
+template <>
+struct Seg8<float> {
+  float v[8];
+  __device__ __forceinline__ void load(const float* p) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldcs(reinterpret_cast<const float4*>(p) + 1);
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int l = 0; l < 8; ++l) v[l] = 0.f;
+  }
+  __device__ __forceinline__ float operator[](int l) const { return v[l]; }
+};
+
+template <typename AT>
+__global__ void __launch_bounds__(MV_THREADS, 4) cell_products(CellMv b) {
+  extern __shared__ float4 mv_smem[];
+  __shared__ int red[2][MV_WARPS];
+  const int cap = b.cap, C = b.ncx * b.ncy * b.ncz;
+  const int c = blockIdx.x, oi = blockIdx.y;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  float4* fown = mv_smem;                                  // cap: f(c)
+  float4* fwd = fown + cap;                                // cap: row sums
+  float* wsm = reinterpret_cast<float*>(fwd + cap);        // 24 MV_THREADS
+
+  const int ox = b.ox[oi], oy = b.oy[oi], oz = b.oz[oi];
+  const int cz = c % b.ncz, cy = (c / b.ncz) % b.ncy, cx = c / (b.ncz * b.ncy);
+  const int cn = (wrap_index(cx + ox, b.ncx) * b.ncy +
+                  wrap_index(cy + oy, b.ncy)) * b.ncz +
+                 wrap_index(cz + oz, b.ncz);
+  // the live slots of c (no) and of c + o (nn)
+  int no = 0, nn = 0;
+  for (int s = tid; s < cap; s += MV_THREADS) {
+    if (b.mask[(long long)c * cap + s] != 0.f) no = s + 1;
+    if (b.mask[(long long)cn * cap + s] != 0.f) nn = s + 1;
+  }
+  no = __reduce_max_sync(0xffffffffu, no);
+  nn = __reduce_max_sync(0xffffffffu, nn);
+  if (lane == 0) red[0][warp] = no, red[1][warp] = nn;
+  __syncthreads();
+  no = nn = 0;
+#pragma unroll
+  for (int w = 0; w < MV_WARPS; ++w)
+    no = max(no, red[0][w]), nn = max(nn, red[1][w]);
+  if (oi == 0 && tid == 0) b.live[c] = no;
+  const long long plane = (long long)C * cap;              // of f, u, part
+  for (int i = tid; i < no; i += MV_THREADS) {
+    const long long o = (long long)c * cap + i;
+    fown[i] = make_float4(b.f[o], b.f[o + plane], b.f[o + 2 * plane], 0.f);
+    fwd[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+
+  const AT* A = reinterpret_cast<const AT*>(b.a) +
+                ((long long)oi * 6 * C + c) * cap * cap;
+  const long long aplane = (long long)C * cap * cap;
+  const int nvl = (nn + 7) / 8;            // c + o's live 8-slot vectors
+  for (int v0 = 0; v0 < nvl; v0 += 32) {
+    const int W = min(32, nvl - v0);       // lanes a row
+    const int per = 32 / W;                // rows a warp
+    const int S = MV_WARPS * per;          // rows a pass
+    const int seg = lane / W, v = lane - seg * W;
+    const bool on = seg < per;
+    const int r = warp * per + seg;        // this lane's row in a pass
+    const int j = 8 * (v0 + v);            // its first column
+    float fj[8][3], tw[8][3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
+      if (on) {
+        const float4* q = reinterpret_cast<const float4*>(
+            b.f + k * plane + (long long)cn * cap + j);
+        lo = q[0], hi = q[1];
+      }
+      fj[0][k] = lo.x, fj[1][k] = lo.y, fj[2][k] = lo.z, fj[3][k] = lo.w;
+      fj[4][k] = hi.x, fj[5][k] = hi.y, fj[6][k] = hi.z, fj[7][k] = hi.w;
+#pragma unroll
+      for (int l = 0; l < 8; ++l) tw[l][k] = 0.f;
+    }
+    for (int i0 = 0; i0 < no; i0 += S) {
+      const int i = i0 + r;
+      const bool act = on && i < no;
+      Seg8<AT> a[6];
+      float4 fi = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (act) {
+        const AT* row = A + (long long)i * cap + j;
+#pragma unroll
+        for (int k = 0; k < 6; ++k) a[k].load(row + k * aplane);
+        fi = fown[i];
+      } else {
+#pragma unroll
+        for (int k = 0; k < 6; ++k) a[k].zero();
+      }
+      float ux = 0.f, uy = 0.f, uz = 0.f;
+#pragma unroll
+      for (int l = 0; l < 8; ++l) {
+        const float xx = a[0][l], xy = a[1][l], xz = a[2][l], yy = a[3][l],
+                    yz = a[4][l], zz = a[5][l];
+        ux = fmaf(xz, fj[l][2], fmaf(xy, fj[l][1], fmaf(xx, fj[l][0], ux)));
+        uy = fmaf(yz, fj[l][2], fmaf(yy, fj[l][1], fmaf(xy, fj[l][0], uy)));
+        uz = fmaf(zz, fj[l][2], fmaf(yz, fj[l][1], fmaf(xz, fj[l][0], uz)));
+        tw[l][0] = fmaf(xz, fi.z, fmaf(xy, fi.y, fmaf(xx, fi.x, tw[l][0])));
+        tw[l][1] = fmaf(yz, fi.z, fmaf(yy, fi.y, fmaf(xy, fi.x, tw[l][1])));
+        tw[l][2] = fmaf(zz, fi.z, fmaf(yz, fi.y, fmaf(xz, fi.x, tw[l][2])));
+      }
+      // the row's sum over its W lanes, a tree in lane order
+      for (int off = 1; off < W; off <<= 1) {
+        const float tx = __shfl_down_sync(0xffffffffu, ux, off);
+        const float ty = __shfl_down_sync(0xffffffffu, uy, off);
+        const float tz = __shfl_down_sync(0xffffffffu, uz, off);
+        if (v + off < W) ux += tx, uy += ty, uz += tz;
+      }
+      if (act && v == 0) {
+        const float4 q = fwd[i];
+        fwd[i] = make_float4(q.x + ux, q.y + uy, q.z + uz, 0.f);
+      }
+    }
+    if (oi >= b.first_t) {
+      // the columns' transposed sums over the block's rows, in row order
+      if (on) {
+#pragma unroll
+        for (int l = 0; l < 8; ++l)
+#pragma unroll
+          for (int k = 0; k < 3; ++k)
+            wsm[((r * W + v) * 8 + l) * 3 + k] = tw[l][k];
+      }
+      __syncthreads();
+      float* out = b.part + (long long)(b.noff + oi - b.first_t) * 3 * plane +
+                   (long long)cn * cap + 8 * v0;
+      for (int e = tid; e < 24 * W; e += MV_THREADS) {
+        const int k = e / (8 * W), jj = e - k * 8 * W;
+        float t = 0.f;
+        for (int q = 0; q < S; ++q) t += wsm[(q * 8 * W + jj) * 3 + k];
+        out[k * plane + jj] = t;
+      }
+    }
+    __syncthreads();  // the next chunk maps rows to other lanes
+  }
+  float* out = b.part + (long long)oi * 3 * plane + (long long)c * cap;
+  for (int i = tid; i < no; i += MV_THREADS) {
+    const float4 q = fwd[i];
+    out[i] = q.x, out[plane + i] = q.y, out[2 * plane + i] = q.z;
+  }
+}
+
+// u per slot: the self term, then the parts in order (live slots; 0 beyond).
+__global__ void cell_sums(const float* f, const float* mask, const float* part,
+                          const int* live, int nparts, long long plane,
+                          int cap, float self, float* u) {
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= plane) return;
+  const bool on = (int)(e % cap) < live[e / cap];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    float x = 0.f;
+    if (on) {
+      x = __fmul_rn(__fmul_rn(self, f[k * plane + e]), mask[e]);
+      for (int p = 0; p < nparts; ++p)
+        x = __fadd_rn(x, part[(p * 3 + k) * plane + e]);
+    }
+    u[k * plane + e] = x;
+  }
+}
+
+template <typename AT>
+cudaError_t launch_matvec(const CellMv& b, float self, float* u,
+                          cudaStream_t stream) {
+  const size_t smem =
+      2 * sizeof(float4) * (size_t)b.cap + sizeof(float) * 24 * MV_THREADS;
+  auto kernel = cell_products<AT>;
+  cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  const int C = b.ncx * b.ncy * b.ncz;
+  kernel<<<dim3(C, b.noff), MV_THREADS, smem, stream>>>(b);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  const long long plane = (long long)C * b.cap;
+  cell_sums<<<(unsigned)((plane + 255) / 256), 256, 0, stream>>>(
+      b.f, b.mask, b.part, b.live, 2 * b.noff - b.first_t, plane, b.cap,
+      self, u);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// a: (noff, 6, C, cap, cap) blocks as build_pair_blocks leaves them (every
+// slot pair with a padded slot zero); f: (3, C, cap) float32; mask: (C,
+// cap); offsets: 3 noff ints on the host, as for pse_blocked_build; first_t:
+// 1 if offsets[0] is (0,0,0), which applies forward only, else 0.  Scratch:
+// part (2 noff - first_t, 3, C, cap) float32, live (C,) int32.  u: (3, C,
+// cap) float32.
+extern "C" int pse_blocked_matvec(const void* a, const float* f,
+                                  const float* mask, float self, int ncx,
+                                  int ncy, int ncz, int cap, int noff,
+                                  const int* offsets, int first_t, int a_bf16,
+                                  float* part, int* live, float* u,
+                                  cudaStream_t stream) {
+  if (cap < LPT || cap % LPT || cap > LPT * MAX_THREADS || noff < 1 ||
+      noff > MAX_OFFSETS || ncx < 1 || ncy < 1 || ncz < 1 ||
+      (first_t != 0 && first_t != 1) ||
+      reinterpret_cast<uintptr_t>(a) % 16 || reinterpret_cast<uintptr_t>(f) % 16)
+    return (int)cudaErrorInvalidValue;
+  CellMv b{};
+  b.a = a, b.f = f, b.mask = mask, b.part = part, b.live = live;
+  b.ncx = ncx, b.ncy = ncy, b.ncz = ncz, b.cap = cap, b.noff = noff;
+  b.first_t = first_t;
+  for (int k = 0; k < noff; ++k)
+    b.ox[k] = offsets[3 * k], b.oy[k] = offsets[3 * k + 1],
+    b.oz[k] = offsets[3 * k + 2];
+  const cudaError_t e =
+      a_bf16 ? launch_matvec<__nv_bfloat16>(b, self, u, stream)
+             : launch_matvec<float>(b, self, u, stream);
   return (int)e;
 }

@@ -47,6 +47,8 @@ _SIGNATURES = {
     "pse_blocked_build": [_P, _P, _P, _P, _P, _I, _F, _F, _F, _I, _I, _I,
                           _I, _F, _F, _F, _F, _F, _F, _F, _I, _P, _I, _P,
                           _P],
+    "pse_blocked_matvec": [_P, _P, _P, _F, _I, _I, _I, _I, _I, _P, _I, _I,
+                           _P, _P, _P, _P],
     "pse_contract_col": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                          _F, _P, _P],
     "pse_spread_col": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F,

@@ -10,18 +10,20 @@ and its neighbour c + o is a dense (cap x cap) block per tensor component:
 Only the half stencil (``half_space_offsets(1)``, (0,0,0) first) is stored:
 the block of -o is the transpose of the block of +o.  ``build_pair_blocks``
 builds them once per step; ``matvec_cells`` applies them to a slot-layout
-vector with batched ``torch.bmm`` products (the JAX package's einsum GEMVs),
-forward u(c) += A(c) f(c+o) and transposed u(c+o) += A(c)^T f(c).
+vector, forward u(c) += A(c) f(c+o) and transposed u(c+o) += A(c)^T f(c).
 
 Neither function has a TPU kernel behind it in the JAX package (both are
-plain XLA there).  On CUDA tensors ``build_pair_blocks`` is one launch of
-``csrc/blocked.cu``, bitwise its plain version
-``build_pair_blocks_reference`` on the card, which CPU tensors run;
-``matvec_cells`` stays PyTorch.  It computes in float32 on every device:
-bfloat16 blocks are upcast for the product, as jnp.einsum promotes them
-against float32 vectors, and float32 products run in full float32 (the port
-never enables TF32).  Sums are gathers, never scattered atomics, so a rerun
-is bitwise equal.
+plain XLA there).  On CUDA tensors each is a hand-written kernel of
+``csrc/blocked.cu``: ``build_pair_blocks`` one launch, bitwise its plain
+version ``build_pair_blocks_reference``; ``matvec_cells`` one call (two
+launches) that reads each live part of a stored block once for both
+products, against ``matvec_cells_reference`` (batched ``torch.bmm``, the
+JAX package's einsum GEMVs).  CPU tensors run the plain versions.  Both
+matvecs compute in float32: bfloat16 blocks are converted for the product,
+as jnp.einsum promotes them against float32 vectors, and float32 products
+run in full float32 (the port never enables TF32).  Sums are gathers or
+fixed-order reductions, never scattered atomics, so a rerun is bitwise
+equal.
 """
 
 from __future__ import annotations
@@ -40,8 +42,8 @@ from ..cellbins import BinSpec, CellBins, half_space_offsets, roll_cells
 from .banded_nearfield import pair_components
 from .chebyshev import ChebPair, device_coeffs
 
-# The product's float32 copy of bfloat16 blocks is made for a group of
-# offsets at a time, at most this many bytes (every offset at once at the
+# The plain product's float32 copy of bfloat16 blocks is made for a group
+# of offsets at a time, at most this many bytes (every offset at once at the
 # test sizes; groups of 9 and 5 offsets at N = 100k, phi = 0.45).
 UPCAST_BYTES = 1 << 32
 
@@ -136,8 +138,8 @@ def build_pair_blocks_reference(
     return out
 
 
-# the C entry's limits (csrc/blocked.cu): 8 slots a thread, at most 256
-# threads a block and 27 offsets
+# the C entries' limits (csrc/blocked.cu): the build's 8 slots a thread, at
+# most 256 threads a block, and 27 offsets
 _MAX_CAP, _MAX_OFFSETS = 8 * 256, 27
 
 
@@ -231,16 +233,17 @@ def _apply(A, rhs, transpose: bool):
         for ki in _COMP], dim=-1)
 
 
-def matvec_cells(
+def matvec_cells_reference(
     blocks: torch.Tensor,      # (noff, 6, C, cap, cap) pair blocks
     spec: NfSpec,
     bins: CellBins,
     f_cells: torch.Tensor,     # (3, C, cap); padded slots must be zero
     self_mobility,
 ) -> torch.Tensor:
-    """u = M_real f in cell layout (3, C, cap): the self term, then per
-    offset the forward and (offsets other than (0,0,0)) the transposed
-    product, gathered back to the cells they belong to.  ``spec.offsets``
+    """Plain version of the matvec, u = M_real f in cell layout (3, C, cap):
+    the self term, then per offset the forward and (offsets other than
+    (0,0,0)) the transposed product by ``torch.bmm`` on a float32 copy of
+    the blocks, gathered back to the cells they belong to.  ``spec.offsets``
     may be a contiguous part of the stencil (the blocks of one device on a
     sharded engine): u is then that part's sum, with the self term as
     given (0.0 for none)."""
@@ -265,3 +268,56 @@ def matvec_cells(
             u = u + w.sum(0)
         del A
     return u.permute(2, 0, 1).contiguous()
+
+
+def matvec_cells(
+    blocks: torch.Tensor,      # (noff, 6, C, cap, cap) pair blocks
+    spec: NfSpec,
+    bins: CellBins,
+    f_cells: torch.Tensor,     # (3, C, cap); padded slots must be zero
+    self_mobility,
+) -> torch.Tensor:
+    """u = M_real f in cell layout (3, C, cap), the function of
+    ``matvec_cells_reference`` for blocks as ``build_pair_blocks`` leaves
+    them (zero at every slot pair with a padded slot): on CUDA tensors one
+    call of ``csrc/blocked.cu`` (two launches, its sums in another order
+    than the plain version's, a rerun bitwise equal); the reference itself
+    on CPU tensors."""
+    if blocks.device.type == "cpu":
+        return matvec_cells_reference(blocks, spec, bins, f_cells,
+                                      self_mobility)
+    C, cap = spec.bins.n_cells_total, spec.bins.cap
+    offsets = [tuple(int(x) for x in o) for o in spec.offsets]
+    noff = len(offsets)
+    if (blocks.shape != (noff, 6, C, cap, cap) or not blocks.is_contiguous()
+            or blocks.dtype not in (torch.float32, torch.bfloat16)):
+        raise ValueError(f"matvec_cells: the blocks must be contiguous "
+                         f"float32 or bfloat16 ({noff}, 6, {C}, {cap}, "
+                         f"{cap}), not {blocks.dtype} {tuple(blocks.shape)}")
+    dev = blocks.device
+    for name, t, shape in (("f_cells", f_cells, (3, C, cap)),
+                           ("mask", bins.mask, (C, cap))):
+        if (t.shape != shape or t.dtype != torch.float32 or t.device != dev
+                or not t.is_contiguous()):
+            raise ValueError(f"matvec_cells: {name} must be contiguous "
+                             f"float32 {shape} on {dev}")
+    if cap % 8 or cap > _MAX_CAP or not 1 <= noff <= _MAX_OFFSETS:
+        raise ValueError(f"matvec_cells: cap {cap} must be a multiple of 8 "
+                         f"up to {_MAX_CAP}, with 1 to {_MAX_OFFSETS} "
+                         f"offsets (not {noff})")
+    first_t = int(offsets[0] == (0, 0, 0))
+    f32 = torch.float32
+    part = torch.empty((2 * noff - first_t, 3, C, cap), dtype=f32, device=dev)
+    live = torch.empty(C, dtype=torch.int32, device=dev)
+    u = torch.empty((3, C, cap), dtype=f32, device=dev)
+    ncx, ncy, ncz = spec.bins.n_cells
+    offs = (ctypes.c_int * (3 * noff))(*[x for o in offsets for x in o])
+    p = kernels.ptr
+    rc = kernels.library().pse_blocked_matvec(
+        p(blocks), p(f_cells), p(bins.mask), float(np.float32(self_mobility)),
+        ncx, ncy, ncz, cap, noff, offs, first_t,
+        int(blocks.dtype == torch.bfloat16), p(part), p(live), p(u),
+        kernels.stream_of(u))
+    trace.count("launch.matvec_cells")
+    kernels.check("matvec_cells", rc)
+    return u

@@ -171,6 +171,30 @@ def test_build_pair_blocks_on_cpu_is_the_plain_path(error):
     assert torch.equal(got, pbn.build_pair_blocks_reference(*args))
 
 
+@pytest.mark.parametrize("part", [None, 1])
+@pytest.mark.parametrize("error", [1e-3, 1e-4])
+def test_matvec_cells_on_cpu_is_the_plain_path(error, part):
+    """On CPU tensors matvec_cells is matvec_cells_reference, bit for bit,
+    over the whole half stencil and over a sharding part that starts past
+    (0,0,0) with a self term of 0.0, and launches no kernel (the card's
+    kernel counts launch.matvec_cells)."""
+    _, tcfg, _, (tbins, tbox) = _nf_inputs(error, 0.3)
+    p = tcfg.params
+    a, b = _stencil_part(tcfg.nf_spec, part)
+    spec = tcfg.nf_spec._replace(offsets=tcfg.nf_spec.offsets[a:b])
+    blocks = pbn.build_pair_blocks(tbins, tbox, spec, tcfg.cheb,
+                                   p.ewald_cut, p.ewald_dr)
+    f = torch.as_tensor(np.random.default_rng(4).normal(
+        size=(3,) + tuple(tbins.px.shape)).astype(np.float32)) * tbins.mask
+    self_m = p.self_mobility if a == 0 else 0.0
+    before = trace.counters().get("launch.matvec_cells", 0)
+    got = pbn.matvec_cells(blocks, spec, tbins, f, self_m)
+    assert trace.counters().get("launch.matvec_cells", 0) == before
+    want = pbn.matvec_cells_reference(blocks, spec, tbins, f, self_m)
+    assert torch.equal(got, want)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
 @pytest.mark.parametrize("error", [1e-3, 1e-4])
 def test_matvec_cells_matches_jax(error):
     """u = M_real f on the JAX package's own blocks: <= 1e-5."""

@@ -1103,3 +1103,94 @@ def test_pair_blocks_kernel_on_the_fallback_configs(cuda):
         pos, box = _uniform(n, 24.0, seed=5), make_box(24.0, 0.3)
         bins = bin_particles(pos, box, cfg.nf_spec.bins)
         _pair_blocks_checked(bins, box, cfg.nf_spec, cfg)
+
+
+# -- the blocked engine's matvec (csrc/blocked.cu) ----------------------------
+
+def _matvec_checked(blocks, spec, bins, self_mobility, seed=7):
+    """matvec_cells on the card against matvec_cells_reference on the same
+    CUDA tensors, f random in the occupied slots: within 2e-6 of max|u|
+    (the kernel sums in another order), zero in every padded slot, one
+    launch a call and a rerun bitwise equal; returns u."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    f = torch.randn((3,) + tuple(bins.mask.shape), generator=g,
+                    device="cuda") * bins.mask
+    before = trace.counters().get("launch.matvec_cells", 0)
+    got = bnf.matvec_cells(blocks, spec, bins, f, self_mobility)
+    assert trace.counters()["launch.matvec_cells"] == before + 1
+    want = bnf.matvec_cells_reference(blocks, spec, bins, f, self_mobility)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    assert float((got - want).abs().max()) <= 2e-6 * float(want.abs().max())
+    assert not bool((got * (bins.mask == 0)).any())
+    assert _bitwise(bnf.matvec_cells(blocks, spec, bins, f, self_mobility),
+                    got)
+    assert trace.counters()["launch.matvec_cells"] == before + 2
+    return got
+
+
+@pytest.mark.parametrize("part", [None, 0, 1, 3])
+@pytest.mark.parametrize("tilt", [0.0, 0.3])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matvec_cells_kernel_matches_the_plain_version(cuda, dtype, tilt,
+                                                       part):
+    """N = 1080 in L = 24 (cells (3, 3, 3), cap 80), float32 and bfloat16
+    blocks, over the whole half stencil and over three of the four parts
+    parallel/sharding.py passes four devices: the first holds (0,0,0) and
+    the self term, the others start at another offset, all transposed,
+    with a self term of 0.0."""
+    from pse_tpu_torch.parallel.sharding import _ranges
+
+    cfg = _blocked_config(1080, 24.0, dtype)
+    pos, box = _uniform(1080, 24.0, seed=3), make_box(24.0, tilt)
+    bins = bin_particles(pos, box, cfg.nf_spec.bins)
+    offs = cfg.nf_spec.offsets
+    a, b = (0, len(offs)) if part is None else _ranges(len(offs), 4)[part]
+    spec = cfg.nf_spec._replace(offsets=offs[a:b])
+    p = cfg.params
+    blocks = bnf.build_pair_blocks(bins, box, spec, cfg.cheb, p.ewald_cut,
+                                   p.ewald_dr)
+    u = _matvec_checked(blocks, spec, bins,
+                        p.self_mobility if a == 0 else 0.0)
+    assert bool(u.abs().amax() > 0)
+
+
+@pytest.mark.parametrize("cap", [16, 40, 112])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matvec_cells_kernel_at_empty_full_and_ragged_cells(cuda, dtype,
+                                                            cap):
+    """Cells (3, 4, 5) of L = 24 filled by hand (cell 0 empty, cell 1
+    full, cell 2 ragged, the others at random occupancies), tilt 0.3, at
+    caps 16, 40 and 112: rows and columns past each cell's occupied slots
+    are skipped, and u is the plain version's."""
+    cfg = _blocked_config(1080, 24.0, dtype)
+    spec = bnf.NfSpec(bins=BinSpec(n_cells=(3, 4, 5), cap=cap),
+                      offsets=half_space_offsets(1), block_dtype=dtype)
+    rng = np.random.default_rng(cap + 1)
+    counts = rng.integers(0, cap + 1, size=spec.bins.n_cells_total)
+    counts[:3] = (0, cap, cap // 2 + 3)
+    bins = _hand_bins(spec.bins, 24.0, counts, seed=cap)
+    p = cfg.params
+    blocks = bnf.build_pair_blocks(bins, make_box(24.0, 0.3), spec, cfg.cheb,
+                                   p.ewald_cut, p.ewald_dr)
+    u = _matvec_checked(blocks, spec, bins, p.self_mobility)
+    assert not bool(u[:, 0].any())                         # the empty cell
+    assert bool(u[:, 1].abs().amin() > 0)                  # the full cell
+
+
+def test_matvec_cells_kernel_at_the_blocked_cell_shapes(cuda):
+    """The benchmark's blocked cell's shapes: N = 100k uniform in L = 97.64,
+    cells (9, 13, 13), cap 112, bfloat16 blocks of the 14 offsets, tilt
+    0.3."""
+    L = 97.64
+    cfg = pi.make_config(make_params(xi=0.5, error=1e-3, L=L), 100_000,
+                         device="cuda")
+    spec, p = cfg.nf_spec, cfg.params
+    assert (cfg.engine, spec.bins.n_cells, spec.bins.cap,
+            spec.block_dtype, len(spec.offsets)) == (
+        "blocked", (9, 13, 13), 112, "bfloat16", 14)
+    box = make_box(L, 0.3)
+    bins = bin_particles(_uniform(100_000, L, seed=9), box, spec.bins)
+    blocks = bnf.build_pair_blocks(bins, box, spec, cfg.cheb, p.ewald_cut,
+                                   p.ewald_dr)
+    _matvec_checked(blocks, spec, bins, p.self_mobility)
